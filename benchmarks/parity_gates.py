@@ -1,32 +1,51 @@
 """On-chip Pallas-vs-XLA parity gates for every kernel family.
 
-CI runs every kernel in interpret mode (CPU, f64) — that validates the
-*traced math* but not the Mosaic compile: a real miscompile (e.g. the
-unroll=1 relayout bug hit in round 1, NEXT.md) would sail through the test
-suite and only corrupt images on hardware.  These gates close that hole:
-each kernel family runs compiled on the attached chip against its XLA
-oracle on a small smooth bundle, and the comparison uses mismatch-fraction
-bounds (f32 on-chip vs f32 XLA; bitwise equality is impossible for
-chaos-adjacent rays — CLAUDE.md invariant).
+The CPU test suite runs every kernel in interpret mode — that validates
+the *traced math* but not the GPU compile: a miscompile, or an operation
+the Triton route lowers differently, would sail through the tests and only
+corrupt images on the card.  These gates close that hole: each kernel
+family runs compiled on the card against its XLA twin, and the comparison
+uses mismatch-fraction bounds (f32 kernel vs f32 XLA; bitwise equality is
+impossible for chaos-adjacent rays — CLAUDE.md invariant).
 
-Called from bench.py (the driver-captured artifact) so every benched build
-carries a per-family parity verdict next to its throughput number.
+``run_gates(full=True)`` runs them at the frame sizes the README renders:
+1024^2 for the planar Euler / RK45 families, 512x288 for the disk,
+volume and Kerr families (chip_smoke.py phase 3); the default small
+bundles keep the CPU tests (tests/test_parity_gates.py) fast.  Each result
+carries the kernel side's compile time and ``memory_analysis()``.
 
-Families: euler (Ellis + DNEG shape paths), rk45, disk, volumetric,
-kerr, kn, adjoint (the checkpointed-recompute backward kernel pair of
-ops/ckpt_adjoint_pallas.py — gradient parity, Pallas vs XLA backward).
+Families: euler (Ellis + DNEG shape paths), rk45, fused (spawn, march and
+readout in one kernel; Euler and DP5(4)), disk, volumetric, kerr, kn,
+kerr_rk45 (bare, disk, volume, scatter), table (Chebyshev user metrics).
 """
 from __future__ import annotations
 
-import os
+import time
 
 import numpy as np
 
-# CPU validation of the gate logic itself: CURVIS_GATES_INTERPRET=1 runs the
-# kernels in interpret mode (tests/test_parity_gates.py); on hardware leave
-# unset so the gates exercise the real Mosaic compiles.
-def _ipret():
-    return os.environ.get("CURVIS_GATES_INTERPRET", "") == "1"
+# gate sizes: (planar frame, disk/Kerr frame) — small for the CPU tests,
+# the README's frame sizes on the card
+_SMALL = {"planar": (32, 16), "disk": (24, 12), "kerr": 128}
+_FULL = {"planar": (1024, 1024), "disk": (512, 288), "kerr": 512 * 288}
+_SIZE = _SMALL
+_STATS: dict = {}
+
+
+def _kernel(fn, *args):
+    """Compile ``fn`` (the kernel side of a gate) explicitly, record its
+    compile time and memory analysis for the running gate, and run it."""
+    import jax
+    t0 = time.perf_counter()
+    compiled = jax.jit(fn).lower(*args).compile()
+    _STATS["compile_s"] = round(time.perf_counter() - t0, 3)
+    mem = compiled.memory_analysis()
+    if mem is not None:
+        _STATS["memory"] = {k: int(getattr(mem, k)) for k in (
+            "argument_size_in_bytes", "output_size_in_bytes",
+            "temp_size_in_bytes", "generated_code_size_in_bytes")
+            if hasattr(mem, k)}
+    return compiled(*args)
 
 
 def _bundle(metric, cam_pos, face, res, dtype):
@@ -64,11 +83,10 @@ def gate_euler(kind="ellis"):
                                     a=jnp.asarray(1e-4, jnp.float32),
                                     rho=jnp.asarray(1.0, jnp.float32))
     rays = _bundle(metric, [0.0, 5.0, np.pi / 2, 0.0], [-1.0, 0.1, 0.0],
-                   (32, 16), jnp.float32)
+                   _SIZE["planar"], jnp.float32)
     kw = dict(dt=0.05, max_steps=8000, escape_radius=30.0)
     a = jax.jit(lambda m, r: pl2.march_planar_while(m, r, **kw))(metric, rays)
-    b = jax.jit(lambda m, r: march_planar_pallas(m, r, sort=False, interpret=_ipret(), **kw))(
-        metric, rays)
+    b = _kernel(lambda m, r: march_planar_pallas(m, r, **kw), metric, rays)
     agree, mm = _escape_mismatch(a, b, tol=1e-3 if kind == "ellis" else 1e-2)
     return {"sign_agree": round(agree, 4), "psi_mismatch": round(mm, 4),
             "ok": bool(agree >= 0.97 and mm <= 0.05)}
@@ -82,14 +100,52 @@ def gate_rk45():
     from curvis_tpu.ops.march_pallas import march_planar_rk45_pallas
     metric = EllisMetric(rho=jnp.asarray(1.0, jnp.float32))
     rays = _bundle(metric, [0.0, 5.0, np.pi / 2, 0.0], [-1.0, 0.1, 0.0],
-                   (32, 16), jnp.float32)
+                   _SIZE["planar"], jnp.float32)
     kw = dict(escape_radius=50.0, rtol=1e-5, atol=1e-7)
     a = jax.jit(lambda m, r: march_planar_rk45(m, r, **kw))(metric, rays)
-    b = jax.jit(lambda m, r: march_planar_rk45_pallas(m, r, interpret=_ipret(), **kw))(
-        metric, rays)
+    b = _kernel(lambda m, r: march_planar_rk45_pallas(m, r, **kw), metric, rays)
     agree, mm = _escape_mismatch(a, b, tol=2e-3)
     return {"sign_agree": round(agree, 4), "psi_mismatch": round(mm, 4),
             "ok": bool(agree >= 0.97 and mm <= 0.05)}
+
+
+def gate_fused(stepper="euler"):
+    """The fused render kernel (ops/render_fused.py) vs the same frame
+    with XLA spawn, march and readout, on a smooth sky: the share of
+    pixels more than 0.02 apart, and the median difference."""
+    import jax
+    import jax.numpy as jnp
+    import curvis_tpu as cv
+    from curvis_tpu.render.fast import render_planar_fused
+    metric = cv.EllisMetric(rho=jnp.asarray(1.0, jnp.float32))
+    yy, xx = np.mgrid[0:32, 0:64]
+    smooth = np.stack([np.sin(2 * np.pi * xx / 64) * 0.5 + 0.5, yy / 32,
+                       0.3 + 0.4 * np.cos(2 * np.pi * yy / 32)],
+                      -1).astype("float32")
+    bgp = cv.make_spherical_image(smooth)
+    bgn = cv.make_spherical_image(smooth[::-1].copy())
+    res = _SIZE["planar"]
+    cam = cv.make_camera([0.0, 5.0, np.pi / 2, 0.0], [-1.0, 0.1, 0.05],
+                         [0.0, 0.0, 1.0], 15.0, 43.0, res[0], res[1],
+                         dtype=jnp.float32)
+    kw = dict(dt=0.05, escape_radius=50.0, filtering="bilinear",
+              stepper=stepper)
+    kw.update(dict(max_steps=2000, rtol=1e-4) if stepper == "rk45"
+              else dict(max_steps=8000))
+
+    def render(backend):
+        return lambda m, c, p, n: render_planar_fused(m, c, p, n,
+                                                      backend=backend, **kw)
+
+    args = (metric, cam, bgp, bgn)
+    a = np.asarray(jax.jit(render("tiled"))(*args))
+    b = np.asarray(_kernel(render("pallas"), *args))
+    d = np.abs(a - b).max(-1)
+    mm = float((d > 0.02).mean())
+    med = float(np.median(d))
+    return {"mismatch_2pct": round(mm, 5), "median": round(med, 6),
+            "finite": bool(np.isfinite(b).all()),
+            "ok": bool(mm < 0.02 and med < 1e-3 and np.isfinite(b).all())}
 
 
 def _disk_setup(metric=None):
@@ -103,7 +159,7 @@ def _disk_setup(metric=None):
     th = np.pi / 2 - 0.22
     cam = cv.make_camera([0.0, 28.0, th, 0.0],
                          [-np.sin(th), 0.0, -np.cos(th)], [0.0, 0.0, 1.0],
-                         30.0, 43.0, 24, 12, dtype=jnp.float32)
+                         30.0, 43.0, *_SIZE["disk"], dtype=jnp.float32)
     dx, dy, dz = _pixel_dirs_soa(cam, False)
     (l, psi, p_l, b), r_hat, e2 = _spawn_planar_soa(metric, cam, dx, dy, dz)
     c1 = jnp.broadcast_to(r_hat[2], l.shape).astype(jnp.float32)
@@ -125,9 +181,8 @@ def gate_disk():
     res_a, (h1a, _, s1a), _ = jax.jit(
         lambda m, r, a, b: march_planar_disk(m, r, a, b, **kw))(
             metric, rays, c1, c2)
-    res_b, (h1b, _, s1b), _ = jax.jit(
-        lambda m, r, a, b: march_planar_disk_pallas(m, r, a, b, interpret=_ipret(), **kw))(
-            metric, rays, c1, c2)
+    res_b, (h1b, _, s1b), _ = _kernel(
+        lambda m, r, a, b: march_planar_disk_pallas(m, r, a, b, **kw), metric, rays, c1, c2)
     sign_agree = float((np.asarray(res_a.sign) == np.asarray(res_b.sign))
                        .mean())
     hit_a, hit_b = np.asarray(h1a) > 0, np.asarray(h1b) > 0
@@ -161,9 +216,9 @@ def gate_volumetric():
                       t_peak=7000.0)
     _, tau_a, _ = jax.jit(lambda m, r, a, b, n: march_planar_disk_volumetric(
         m, r, a, b, n, params=disk, **kw))(metric, rays, c1, c2, nz)
-    _, tau_b, _ = jax.jit(
+    _, tau_b, _ = _kernel(
         lambda m, r, a, b, n: march_planar_disk_volumetric_pallas(
-            m, r, a, b, n, disk=disk, interpret=_ipret(), **kw))(metric, rays, c1, c2, nz)
+            m, r, a, b, n, disk=disk, **kw), metric, rays, c1, c2, nz)
     ta, tb = np.asarray(tau_a), np.asarray(tau_b)
     rel = np.abs(ta - tb) / np.maximum(np.abs(ta), 1e-4)
     mm = float((rel > 1e-2).mean())
@@ -184,10 +239,10 @@ def gate_rk45_disk():
               max_steps=20_000)
     res_a, (h1a, _, _s1a), _ = jax.jit(lambda m, r, a, b: march_planar_rk45(
         m, r, c1=a, c2=b, disk=(5.2, 13.0), **kw))(metric, rays, c1, c2)
-    res_b, (h1b, _, _s1b), _ = jax.jit(
+    res_b, (h1b, _, _s1b), _ = _kernel(
         lambda m, r, a, b: march_planar_rk45_pallas(
-            m, r, c1=a, c2=b, disk=(5.2, 13.0), interpret=_ipret(),
-            **kw))(metric, rays, c1, c2)
+            m, r, c1=a, c2=b, disk=(5.2, 13.0),
+            **kw), metric, rays, c1, c2)
     sign_agree = float((np.asarray(res_a.sign) == np.asarray(res_b.sign))
                        .mean())
     hit_a, hit_b = np.asarray(h1a) > 0, np.asarray(h1b) > 0
@@ -207,7 +262,7 @@ def gate_rk45_disk():
 def gate_rk45_vol():
     """Planar rk45 x volumetric — compiled kernel vs the XLA twin (both
     evaluate the SAME _vol_emission, so tau/emission agree to f32
-    accumulation noise; measured 3.5e-5 rel L1 in interpret)."""
+    accumulation noise)."""
     import jax
     from curvis_tpu.integrate.rk45 import march_planar_rk45
     from curvis_tpu.ops.march_pallas import march_planar_rk45_pallas
@@ -221,10 +276,10 @@ def gate_rk45_vol():
     ra, tau_a, em_a = jax.jit(lambda m, r, a, b, n: march_planar_rk45(
         m, r, c1=a, c2=b, nz=n, vol_disk=disk, **kw))(metric, rays, c1,
                                                       c2, nz)
-    rb, tau_b, em_b = jax.jit(
+    rb, tau_b, em_b = _kernel(
         lambda m, r, a, b, n: march_planar_rk45_pallas(
-            m, r, c1=a, c2=b, nz=n, vol_disk=disk, interpret=_ipret(),
-            **kw))(metric, rays, c1, c2, nz)
+            m, r, c1=a, c2=b, nz=n, vol_disk=disk,
+            **kw), metric, rays, c1, c2, nz)
     agree = float((np.asarray(ra.sign) == np.asarray(rb.sign)).mean())
     ta, tb = np.asarray(tau_a), np.asarray(tau_b)
     d_tau = float(np.abs(ta - tb).sum() / max(np.abs(ta).sum(), 1e-6))
@@ -240,7 +295,7 @@ def _kerr_bundle(metric):
     import jax.numpy as jnp
     from curvis_tpu.physics import hamiltonian as ham
     rng = np.random.default_rng(0)
-    n = 128
+    n = _SIZE["kerr"]
     ths = np.pi / 2 + 0.4 * rng.standard_normal(n)
     x0 = jnp.asarray(np.stack([np.zeros(n), np.full(n, 30.0), ths,
                                np.zeros(n)], -1), jnp.float32)
@@ -269,8 +324,8 @@ def gate_kerr(charged=False):
     kw = dict(dt=0.1, max_steps=20_000, escape_radius=60.0)
     res = jax.jit(lambda m, x, p: ham.march_hamiltonian(
         m, x, p, capture_radius=m.capture_radius, **kw))(metric, x0, p0)
-    x_k, _, sign_k, _ = jax.jit(lambda m, x, p: march_kerr_pallas(
-        m, x, p, interpret=_ipret(), **kw))(metric, x0, p0)
+    x_k, _, sign_k, _ = _kernel(lambda m, x, p: march_kerr_pallas(
+        m, x, p, **kw), metric, x0, p0)
     sa, sk = np.asarray(res.sign), np.asarray(sign_k)
     agree = float((sa == sk).mean())
     esc = (sa == sk) & (sa == 1)
@@ -301,8 +356,8 @@ def gate_kerr_rk45():
     kw = dict(escape_radius=60.0, rtol=1e-4, atol=1e-7, max_steps=4_000)
     res = jax.jit(lambda m, x, p: march_kerr_rk45(
         m, x, p, capture_radius=m.capture_radius, **kw))(metric, x0, p0)
-    x_k, _, sign_k, _ = jax.jit(lambda m, x, p: march_kerr_rk45_pallas(
-        m, x, p, interpret=_ipret(), **kw))(metric, x0, p0)
+    x_k, _, sign_k, _ = _kernel(lambda m, x, p: march_kerr_rk45_pallas(
+        m, x, p, **kw), metric, x0, p0)
     sa, sk = np.asarray(res.sign), np.asarray(sign_k)
     agree = float((sa == sk).mean())
     esc = (sa == sk) & (sa == 1)
@@ -338,11 +393,10 @@ def gate_kerr_rk45_vol():
     _, _, sa, tau_a, em_a = jax.jit(lambda m, x, p: march_kerr_volumetric(
         m, x, p, dt=0.1, max_steps=20_000, escape_radius=60.0,
         params=disk))(metric, x0, p0)
-    _, _, sb, _, (tau_b, em_b) = jax.jit(
+    _, _, sb, _, (tau_b, em_b) = _kernel(
         lambda m, x, p: march_kerr_rk45_pallas(
             m, x, p, dt0=0.1, max_steps=8_000, escape_radius=60.0,
-            rtol=1e-4, atol=1e-7, vol_disk=disk, interpret=_ipret()))(
-                metric, x0, p0)
+            rtol=1e-4, atol=1e-7, vol_disk=disk), metric, x0, p0)
     agree = float((np.asarray(sa) == np.asarray(sb)).mean())
     ta, tb = np.asarray(tau_a), np.asarray(tau_b)
     d_tau = float(np.abs(ta - tb).sum() / max(np.abs(ta).sum(), 1e-6))
@@ -382,11 +436,10 @@ def gate_kerr_scatter():
     _, _, sa, tau_a, em_a = jax.jit(lambda m, x, p, b: march_kerr_volumetric(
         m, x, p, dt=0.1, max_steps=20_000, escape_radius=60.0,
         params=disk, scatter_block=b))(metric, x0, p0, blk)
-    _, _, sb, _, (tau_b, em_b) = jax.jit(
+    _, _, sb, _, (tau_b, em_b) = _kernel(
         lambda m, x, p, b: march_kerr_pallas(
             m, x, p, dt=0.1, max_steps=20_000, escape_radius=60.0,
-            vol_disk=disk, scatter_block=b, far_r0=None,
-            interpret=_ipret()))(metric, x0, p0, blk)
+            vol_disk=disk, scatter_block=b, far_r0=None), metric, x0, p0, blk)
     agree = float((np.asarray(sa) == np.asarray(sb)).mean())
     ta, tb = np.asarray(tau_a), np.asarray(tau_b)
     d_tau = float(np.abs(ta - tb).sum() / max(np.abs(ta).sum(), 1e-6))
@@ -402,7 +455,7 @@ def gate_table():
     """User-metric kernel path (metrics/table.py): the Chebyshev-table
     Pallas march (kind 'cheb{K}', compiled) vs the XLA while marcher
     evaluating the *same* TabulatedMetric — identical polynomials, so any
-    disagreement is a Mosaic compile issue, not fit error."""
+    disagreement is a compile issue, not fit error."""
     import jax
     import jax.numpy as jnp
     from curvis_tpu.metrics.table import tabulate_metric
@@ -416,11 +469,11 @@ def gate_table():
     tab, _ = tabulate_metric(r_fn, degree=16, tol=5e-4)
     tab = jax.tree.map(lambda a: a.astype(jnp.float32), tab)
     rays = _bundle(tab, [0.0, 5.0, np.pi / 2, 0.0], [-1.0, 0.1, 0.0],
-                   (32, 16), jnp.float32)
+                   _SIZE["planar"], jnp.float32)
     kw = dict(dt=0.05, max_steps=8000, escape_radius=30.0)
     a = jax.jit(lambda m, r: pl2.march_planar_while(m, r, **kw))(tab, rays)
-    b = jax.jit(lambda m, r: march_planar_pallas(
-        m, r, sort=False, interpret=_ipret(), **kw))(tab, rays)
+    b = _kernel(lambda m, r: march_planar_pallas(
+        m, r, **kw), tab, rays)
     agree, mm = _escape_mismatch(a, b, tol=1e-3)
     return {"sign_agree": round(agree, 4), "psi_mismatch": round(mm, 4),
             "ok": bool(agree >= 0.97 and mm <= 0.05)}
@@ -440,15 +493,15 @@ def _table_metric():
 
 
 def gate_table_rk45():
-    """cheb x rk45 combo compiled on-chip (round-3 VERDICT weak #4: the
-    table-metric kernel combos were interpret-tested only, and the cheb
-    tail offset is exactly the bug class that shipped twice).
+    """cheb x rk45 combo compiled for the card (round-3 VERDICT weak #4:
+    the table-metric kernel combos were interpret-tested only, and the
+    cheb tail offset is exactly the bug class that shipped twice).
 
-    tol 6e-3, not the analytic families' 2e-3: measured on-chip, BOTH
-    twins sit ~1.7e-3 median / 4e-3 max from a tight-tolerance oracle —
-    the f32 degree-16 table evaluation noise amplified through throat-
-    grazing deflection (each twin rounds the Clenshaw chain differently,
-    and the controller's accept flips decorrelate them).  A layout bug
+    tol 6e-3, not the analytic families' 2e-3: BOTH twins sit ~1.7e-3
+    median / 4e-3 max from a tight-tolerance oracle — the f32 degree-16
+    table evaluation noise amplified through throat-grazing deflection
+    (each twin rounds the Clenshaw chain differently, and the
+    controller's accept flips decorrelate them).  A layout bug
     (the class this gate exists for) produces O(1) garbage, far above
     this floor."""
     import jax
@@ -457,18 +510,18 @@ def gate_table_rk45():
     from curvis_tpu.ops.march_pallas import march_planar_rk45_pallas
     tab = _table_metric()
     rays = _bundle(tab, [0.0, 5.0, np.pi / 2, 0.0], [-1.0, 0.1, 0.0],
-                   (32, 16), jnp.float32)
+                   _SIZE["planar"], jnp.float32)
     kw = dict(escape_radius=30.0, rtol=1e-5, atol=1e-7)
     a = jax.jit(lambda m, r: march_planar_rk45(m, r, **kw))(tab, rays)
-    b = jax.jit(lambda m, r: march_planar_rk45_pallas(
-        m, r, interpret=_ipret(), **kw))(tab, rays)
+    b = _kernel(lambda m, r: march_planar_rk45_pallas(
+        m, r, **kw), tab, rays)
     agree, mm = _escape_mismatch(a, b, tol=6e-3)
     return {"sign_agree": round(agree, 4), "psi_mismatch": round(mm, 4),
             "ok": bool(agree >= 0.97 and mm <= 0.05)}
 
 
 def gate_table_disk():
-    """cheb x thin-disk crossing-capture combo compiled on-chip."""
+    """cheb x thin-disk crossing-capture combo compiled for the card."""
     import jax
     from curvis_tpu.ops.march_pallas import march_planar_disk_pallas
     from curvis_tpu.render.disk import march_planar_disk
@@ -478,9 +531,9 @@ def gate_table_disk():
     res_a, (h1a, _, _s1a), _ = jax.jit(
         lambda m, r, a, b: march_planar_disk(m, r, a, b, **kw))(
             metric, rays, c1, c2)
-    res_b, (h1b, _, _s1b), _ = jax.jit(
+    res_b, (h1b, _, _s1b), _ = _kernel(
         lambda m, r, a, b: march_planar_disk_pallas(
-            m, r, a, b, interpret=_ipret(), **kw))(metric, rays, c1, c2)
+            m, r, a, b, **kw), metric, rays, c1, c2)
     sign_agree = float((np.asarray(res_a.sign) == np.asarray(res_b.sign))
                        .mean())
     hit_a, hit_b = np.asarray(h1a) > 0, np.asarray(h1b) > 0
@@ -497,8 +550,9 @@ def gate_table_disk():
 
 
 def gate_table_vol():
-    """cheb x volumetric combo compiled on-chip — the exact combination
-    whose SMEM tail offset (CHEB_OFF_VOL) was mis-spliced in round 3."""
+    """cheb x volumetric combo compiled for the card — the exact
+    combination whose scalar-row tail offset (CHEB_OFF_VOL) was mis-spliced
+    in round 3."""
     import jax
     from curvis_tpu.ops.march_pallas import \
         march_planar_disk_volumetric_pallas
@@ -511,157 +565,13 @@ def gate_table_vol():
                       t_peak=7000.0)
     _, tau_a, _ = jax.jit(lambda m, r, a, b, n: march_planar_disk_volumetric(
         m, r, a, b, n, params=disk, **kw))(metric, rays, c1, c2, nz)
-    _, tau_b, _ = jax.jit(
+    _, tau_b, _ = _kernel(
         lambda m, r, a, b, n: march_planar_disk_volumetric_pallas(
-            m, r, a, b, n, disk=disk, interpret=_ipret(), **kw))(
-                metric, rays, c1, c2, nz)
+            m, r, a, b, n, disk=disk, **kw), metric, rays, c1, c2, nz)
     ta, tb = np.asarray(tau_a), np.asarray(tau_b)
     rel = np.abs(ta - tb) / np.maximum(np.abs(ta), 1e-4)
     mm = float((rel > 1e-2).mean())
     return {"tau_mismatch": round(mm, 4), "ok": bool(mm <= 0.05)}
-
-
-def gate_adjoint():
-    """Gradient parity of the checkpointed-recompute backward: the Pallas
-    kernel pair (compiled, on-chip) vs the XLA checkpointed scan — the gate
-    that interpret-mode CI cannot provide for ops/ckpt_adjoint_pallas.py."""
-    import jax
-    import jax.numpy as jnp
-    from curvis_tpu.integrate.kerr_adjoint import march_kerr_adjoint
-    from curvis_tpu.metrics.kerr import KerrMetric
-    from curvis_tpu.physics import hamiltonian as ham
-    rng = np.random.default_rng(1)
-    n = 128
-    th0 = np.pi / 2 - 0.3
-    pos = jnp.asarray(np.stack([np.zeros(n), np.full(n, 15.0),
-                                np.full(n, th0), np.zeros(n)], -1),
-                      jnp.float32)
-    dirs = np.stack([-np.ones(n), 1.3 + 0.3 * rng.standard_normal(n),
-                     0.3 * rng.standard_normal(n)], -1)
-    dirs = jnp.asarray(dirs / np.linalg.norm(dirs, axis=-1, keepdims=True),
-                       jnp.float32)
-    kw = dict(dt=0.1, max_steps=512, escape_radius=25.0)
-
-    def loss(a, backend):
-        metric = KerrMetric(m=jnp.asarray(1.0, jnp.float32), a=a)
-        p0 = ham.spawn_photon(metric, pos, dirs)
-        x, p, sign, _ = march_kerr_adjoint(metric, pos, p0, backend=backend,
-                                           **kw)
-        return jnp.mean(jnp.where(sign == 1,
-                                  jnp.sin(x[:, 3]) * p[:, 1]
-                                  + jnp.cos(x[:, 2]), 0.0))
-
-    a0 = jnp.asarray(0.8, jnp.float32)
-    gx = float(jax.jit(jax.grad(lambda a: loss(a, "xla")))(a0))
-    pk = "pallas_interpret" if _ipret() else "pallas"
-    gp = float(jax.jit(jax.grad(lambda a: loss(a, pk)))(a0))
-    rel = abs(gp - gx) / max(abs(gx), 1e-12)
-    return {"grad_xla": round(gx, 6), "grad_pallas": round(gp, 6),
-            "rel": round(rel, 6), "ok": bool(rel < 1e-2)}
-
-
-def gate_rk45_adjoint():
-    """Gradient parity of the differentiable error-controlled march
-    (integrate/rk45_adjoint.py): Pallas rk45 forward + Pallas checkpointed
-    backward (compiled) vs the XLA pair, compared PER RAY.
-
-    Unlike the fixed-RK4 pair (whose step has no data-dependent decisions,
-    so its replay is bitwise-stable across compilations and the scalar
-    gradients match to 1e-2), the rk45 replay recomputes accept/reject
-    decisions — and two different COMPILATIONS of the same f32 math round
-    err near the threshold differently, flipping isolated rays onto
-    nearby-but-different trajectories (measured: even the XLA pair alone
-    is segment-length-sensitive in f32; each pair's gradient is exact for
-    ITS replayed trajectory — the CLAUDE.md chaos invariant applied to
-    gradients).  A scalar-sum comparison cannot average that out, so the
-    gate checks the per-ray input-cotangent field: flipped rays must be
-    ISOLATED (<= 15%; measured ~10% on this ring-grazing f32 fan) and
-    every other ray must agree to 1e-2 (measured median 2e-5).  A Mosaic
-    miscompile breaks all rays, not a handful."""
-    import jax
-    import jax.numpy as jnp
-    from curvis_tpu.integrate.rk45_adjoint import march_kerr_rk45_adjoint
-    from curvis_tpu.metrics.kerr import KerrMetric
-    from curvis_tpu.physics import hamiltonian as ham
-    rng = np.random.default_rng(1)
-    n = 128
-    th0 = np.pi / 2 - 0.3
-    pos = jnp.asarray(np.stack([np.zeros(n), np.full(n, 15.0),
-                                np.full(n, th0), np.zeros(n)], -1),
-                      jnp.float32)
-    dirs = np.stack([-np.ones(n), 1.3 + 0.3 * rng.standard_normal(n),
-                     0.3 * rng.standard_normal(n)], -1)
-    dirs = jnp.asarray(dirs / np.linalg.norm(dirs, axis=-1, keepdims=True),
-                       jnp.float32)
-    metric = KerrMetric(m=jnp.asarray(1.0, jnp.float32),
-                        a=jnp.asarray(0.8, jnp.float32))
-    p0 = ham.spawn_photon(metric, pos, dirs)
-    kw = dict(dt0=0.1, max_steps=400, escape_radius=25.0, rtol=1e-4,
-              atol=1e-7)
-
-    def loss(p0v, backend):
-        x, p, sign, _ = march_kerr_rk45_adjoint(metric, pos, p0v,
-                                                backend=backend, **kw)
-        return jnp.mean(jnp.where(sign == 1,
-                                  jnp.sin(x[:, 3]) * p[:, 1]
-                                  + jnp.cos(x[:, 2]), 0.0))
-
-    pk = "pallas_interpret" if _ipret() else "pallas"
-    gx = np.asarray(jax.jit(jax.grad(lambda v: loss(v, "xla")))(p0))
-    gp = np.asarray(jax.jit(jax.grad(lambda v: loss(v, pk)))(p0))
-    num = np.linalg.norm(gx - gp, axis=1)
-    den = np.maximum(np.linalg.norm(gx, axis=1), 1e-8)
-    rel = num / den
-    flipped = float((rel > 1e-2).mean())
-    stable = rel[rel <= 1e-2]
-    med = float(np.median(rel))
-    return {"flipped_frac": round(flipped, 4), "rel_median": round(med, 6),
-            "n_stable": int(stable.size),
-            "ok": bool(flipped <= 0.15 and med < 1e-3)}
-
-
-def gate_rk45_adjoint_planar():
-    """Planar twin of gate_rk45_adjoint (integrate/rk45_adjoint_planar.py):
-    Pallas planar rk45 forward + Pallas checkpointed backward (compiled) vs
-    the XLA pair, compared per ray on the input-cotangent field.  Same
-    isolated-flip tolerance rationale: each pair's gradient is exact for
-    ITS replayed f32 trajectory; knife-edge accept decisions round
-    differently across compilations on throat-grazing rays, so flips must
-    be isolated while stable rays agree tightly."""
-    import jax
-    import jax.numpy as jnp
-    from curvis_tpu.integrate.rk45_adjoint_planar import (
-        march_planar_rk45_adjoint)
-    from curvis_tpu.metrics.base import EllisMetric
-    from curvis_tpu.physics import planar as pl
-    import curvis_tpu as cv
-    from curvis_tpu.camera.camera import pixel_rays_world
-    metric = EllisMetric(rho=jnp.asarray(1.0, jnp.float32))
-    cam = cv.make_camera([0.0, 5.0, np.pi / 2, 0.0], [-1.0, 0.25, 0.1],
-                         [0.0, 0.0, 1.0], 15.0, 43.0, 16, 8,
-                         dtype=jnp.float32)
-    rays = pl.spawn_planar(metric, cam.position, pixel_rays_world(cam))
-    kw = dict(dt0=0.05, max_steps=400, escape_radius=25.0, rtol=1e-4,
-              atol=1e-7)
-
-    def loss(b, backend):
-        l, psi, p_l, sign, _ = march_planar_rk45_adjoint(
-            metric, (rays.l, rays.psi, rays.p_l), b, backend=backend, **kw)
-        esc = (sign == 1) | (sign == -1)
-        return jnp.mean(jnp.where(esc, jnp.sin(psi) + 0.3 * p_l * l / 25.0,
-                                  0.0))
-
-    pk = "pallas_interpret" if _ipret() else "pallas"
-    gx = np.asarray(jax.jit(jax.grad(lambda v: loss(v, "xla")))(rays.b))
-    gp = np.asarray(jax.jit(jax.grad(lambda v: loss(v, pk)))(rays.b))
-    num = np.abs(gx - gp)
-    den = np.maximum(np.abs(gx), 1e-8)
-    rel = num / den
-    flipped = float((rel > 1e-2).mean())
-    med = float(np.median(rel))
-    return {"flipped_frac": round(flipped, 4), "rel_median": round(med, 6),
-            "n_stable": int((rel <= 1e-2).sum()),
-            "ok": bool(flipped <= 0.15 and med < 1e-3)}
 
 
 def gate_kerr_disk():
@@ -676,7 +586,7 @@ def gate_kerr_disk():
     from curvis_tpu.metrics.kerr import KerrMetric
     from curvis_tpu.physics import hamiltonian as ham
     rng = np.random.default_rng(3)
-    n = 512
+    n = max(512, _SIZE["kerr"])
     th0 = np.pi / 2 - 0.5
     pos = jnp.asarray(np.stack([np.zeros(n), np.full(n, 18.0),
                                 np.full(n, th0), np.zeros(n)], -1),
@@ -689,10 +599,8 @@ def gate_kerr_disk():
                         a=jnp.asarray(0.7, jnp.float32))
     p0 = ham.spawn_photon(metric, pos, dirs)
     kw = dict(dt=0.1, max_steps=2000, escape_radius=25.0)
-    xk, pk_, sk, _, (h1k, h2k) = jax.jit(
-        lambda m, x, p: march_kerr_pallas(m, x, p, disk=(2.0, 12.0),
-                                          interpret=_ipret(), **kw))(
-        metric, pos, p0)
+    xk, pk_, sk, _, (h1k, h2k) = _kernel(
+        lambda m, x, p: march_kerr_pallas(m, x, p, disk=(2.0, 12.0), **kw), metric, pos, p0)
     xd, pd, sd, (h1x, h2x) = jax.jit(
         lambda m, x, p: march_kerr_disk(m, x, p, r_inner=2.0, r_outer=12.0,
                                         **kw))(metric, pos, p0)
@@ -715,141 +623,9 @@ def gate_kerr_disk():
                        and (not both.any() or dside.max() == 0.0))}
 
 
-def gate_disk_adjoint():
-    """Gradient parity of the fixed-step Kerr DISK adjoint (round 5):
-    Pallas forward + Pallas checkpointed backward (compiled, 12-state) vs
-    the XLA pair — captured rays' hit cotangents included."""
-    import jax
-    import jax.numpy as jnp
-    from curvis_tpu.integrate.kerr_surface_adjoint import (
-        march_kerr_disk_adjoint)
-    from curvis_tpu.metrics.kerr import KerrMetric
-    from curvis_tpu.physics import hamiltonian as ham
-    rng = np.random.default_rng(3)
-    n = 128
-    th0 = np.pi / 2 - 0.5
-    pos = jnp.asarray(np.stack([np.zeros(n), np.full(n, 18.0),
-                                np.full(n, th0), np.zeros(n)], -1),
-                      jnp.float32)
-    dirs = np.stack([-np.ones(n), 0.25 * rng.standard_normal(n),
-                     -0.25 - 0.4 * rng.random(n)], -1)
-    dirs = jnp.asarray(dirs / np.linalg.norm(dirs, axis=-1, keepdims=True),
-                       jnp.float32)
-    kw = dict(dt=0.1, max_steps=512, escape_radius=25.0)
-
-    def loss(a, backend):
-        metric = KerrMetric(m=jnp.asarray(1.0, jnp.float32), a=a)
-        p0 = ham.spawn_photon(metric, pos, dirs)
-        _, _, sg, _, (H1, _h2) = march_kerr_disk_adjoint(
-            metric, pos, p0, r_inner=2.0, r_outer=12.0, backend=backend,
-            **kw)
-        w = jnp.where(H1[0] > 0, 1.0, 0.0)
-        return jnp.mean(w * jnp.sin(H1[0]) * jnp.cos(H1[1]))
-
-    a0 = jnp.asarray(0.7, jnp.float32)
-    gx = float(jax.jit(jax.grad(lambda a: loss(a, "xla")))(a0))
-    pk = "pallas_interpret" if _ipret() else "pallas"
-    gp = float(jax.jit(jax.grad(lambda a: loss(a, pk)))(a0))
-    rel = abs(gp - gx) / max(abs(gx), 1e-12)
-    return {"grad_xla": round(gx, 6), "grad_pallas": round(gp, 6),
-            "rel": round(rel, 6), "ok": bool(rel < 1e-2)}
-
-
-def gate_vol_adjoint():
-    """Gradient parity of the fixed-step Kerr VOLUMETRIC adjoint (round 5):
-    the 9-state radiative-transfer pair, with a traced disk parameter
-    (kappa) riding the emission row."""
-    import jax
-    import jax.numpy as jnp
-    from curvis_tpu.integrate.kerr_surface_adjoint import (
-        march_kerr_vol_adjoint)
-    from curvis_tpu.metrics.kerr import KerrMetric
-    from curvis_tpu.physics import hamiltonian as ham
-    from curvis_tpu.render.disk import DiskParams
-    rng = np.random.default_rng(3)
-    n = 128
-    th0 = np.pi / 2 - 0.5
-    pos = jnp.asarray(np.stack([np.zeros(n), np.full(n, 18.0),
-                                np.full(n, th0), np.zeros(n)], -1),
-                      jnp.float32)
-    dirs = np.stack([-np.ones(n), 0.25 * rng.standard_normal(n),
-                     -0.25 - 0.4 * rng.random(n)], -1)
-    dirs = jnp.asarray(dirs / np.linalg.norm(dirs, axis=-1, keepdims=True),
-                       jnp.float32)
-    disk = DiskParams(r_inner=3.0, r_outer=12.0, volumetric=True,
-                      h_rel=0.1, kappa=2.0, tau_max=8.0)
-    kw = dict(dt=0.1, max_steps=512, escape_radius=25.0)
-
-    def loss(a, kappa, backend):
-        metric = KerrMetric(m=jnp.asarray(1.0, jnp.float32), a=a)
-        p0 = ham.spawn_photon(metric, pos, dirs)
-        _, _, sg, _, tau, em = march_kerr_vol_adjoint(
-            metric, pos, p0, disk, backend=backend,
-            disk_theta={"kappa": kappa}, **kw)
-        return jnp.mean(em[0]) + jnp.mean(jnp.exp(-tau))
-
-    import functools
-    a0 = jnp.asarray(0.7, jnp.float32)
-    k0 = jnp.asarray(2.0, jnp.float32)
-    gx = jax.jit(jax.grad(functools.partial(loss, backend="xla"),
-                          argnums=(0, 1)))(a0, k0)
-    pk = "pallas_interpret" if _ipret() else "pallas"
-    gp = jax.jit(jax.grad(functools.partial(loss, backend=pk),
-                          argnums=(0, 1)))(a0, k0)
-    rel_a = abs(float(gp[0]) - float(gx[0])) / max(abs(float(gx[0])), 1e-12)
-    rel_k = abs(float(gp[1]) - float(gx[1])) / max(abs(float(gx[1])), 1e-12)
-    return {"grad_a_xla": round(float(gx[0]), 6),
-            "grad_a_pallas": round(float(gp[0]), 6),
-            "rel_a": round(rel_a, 6), "rel_kappa": round(rel_k, 6),
-            "ok": bool(rel_a < 1e-2 and rel_k < 1e-2)}
-
-
-def gate_surface_adjoint_planar():
-    """Gradient parity of the planar Euler VOLUMETRIC adjoint pair (round
-    5, integrate/planar_surface_adjoint.py): the 9-state map with metric +
-    disk-parameter cotangents, Pallas pair vs XLA pair."""
-    import jax
-    import jax.numpy as jnp
-    from curvis_tpu.integrate.planar_surface_adjoint import (
-        march_planar_vol_adjoint)
-    from curvis_tpu.metrics.base import SchwarzschildMetric
-    from curvis_tpu.render.disk import DiskParams
-    rng = np.random.default_rng(2)
-    n = 256
-    l0 = jnp.full((n,), 18.0, jnp.float32)
-    psi0 = jnp.zeros((n,), jnp.float32)
-    alpha = jnp.asarray(np.pi - (0.12 + 0.5 * rng.random(n)), jnp.float32)
-    ang = rng.random(n) * 2 * np.pi
-    c1 = jnp.asarray(0.3 * np.cos(ang), jnp.float32)
-    c2 = jnp.asarray(0.8 * np.sin(ang) + 0.1, jnp.float32)
-    nz = jnp.asarray(0.5 + 0.4 * rng.random(n), jnp.float32)
-    disk = DiskParams(r_inner=3.0, r_outer=12.0, volumetric=True,
-                      h_rel=0.1, kappa=2.0, tau_max=8.0)
-
-    def loss(m, backend):
-        met = SchwarzschildMetric(m=m)
-        A0 = met.lapse(l0)
-        B0 = met.radial_B(l0)
-        p_l = jnp.cos(alpha) * jnp.sqrt(B0 / A0)
-        b = met.r(l0) * jnp.sin(alpha) / jnp.sqrt(A0)
-        out = march_planar_vol_adjoint(
-            met, (l0, psi0, p_l), b, c1, c2, nz, disk, stepper="euler",
-            backend=backend, dt=0.05, max_steps=2048, escape_radius=25.0)
-        tau, em = out[5]
-        return jnp.mean(em[0]) + jnp.mean(jnp.exp(-tau))
-
-    m0 = jnp.asarray(1.0, jnp.float32)
-    gx = float(jax.jit(jax.grad(lambda m: loss(m, "xla")))(m0))
-    pk = "pallas_interpret" if _ipret() else "pallas"
-    gp = float(jax.jit(jax.grad(lambda m: loss(m, pk)))(m0))
-    rel = abs(gp - gx) / max(abs(gx), 1e-12)
-    return {"grad_xla": round(gx, 6), "grad_pallas": round(gp, 6),
-            "rel": round(rel, 6), "ok": bool(rel < 1e-2)}
-
-
 def gate_vol_scatter():
     """Starlight single-scattering source riding the planar vol kernel's
-    SMEM row (round 5): Pallas (compiled) vs the XLA twin on (tau, em),
+    scalar row (round 5): Pallas (compiled) vs the XLA twin on (tau, em),
     plus the uniform-sky closed form I_sc = (ks a L / kappa)(1 - e^-tau)
     against the kernel's own tau output (quadrature-level tolerance)."""
     import jax
@@ -863,7 +639,7 @@ def gate_vol_scatter():
     from curvis_tpu.ops.march_pallas import \
         march_planar_disk_volumetric_pallas
     rng = np.random.default_rng(4)
-    n = 256
+    n = max(256, _SIZE["kerr"])
     met = EllisMetric(rho=jnp.asarray(0.05, jnp.float32))
     disk = DiskParams(r_inner=3.0, r_outer=9.0, volumetric=True,
                       h_rel=0.12, kappa=2.0, tau_max=30.0, redshift=False,
@@ -888,20 +664,18 @@ def gate_vol_scatter():
         lambda m, r: march_planar_disk_volumetric(
             m, r, c1, c2, nz, params=disk, scatter_block=blk, **kw))(
         met, rays)
-    res_k, tau_k, em_k = jax.jit(
+    res_k, tau_k, em_k = _kernel(
         lambda m, r: march_planar_disk_volumetric_pallas(
-            m, r, c1, c2, nz, disk=disk, scatter_block=blk,
-            interpret=_ipret(), **kw))(met, rays)
+            m, r, c1, c2, nz, disk=disk, scatter_block=blk, **kw), met, rays)
     tau_rel = float(np.max(np.abs(np.asarray(tau_t) - np.asarray(tau_k))
                            / np.maximum(np.asarray(tau_t), 1e-3)))
     em_rel = float(np.max(np.abs(np.asarray(em_t[2]) - np.asarray(em_k[2]))
                           / np.maximum(np.asarray(em_t[2]), 1e-3)))
     # closed form on the kernel's own outputs: subtract the emission-only
     # march (grayscale w) to isolate the scattered channel
-    _, tau_o, em_o = jax.jit(
+    _, tau_o, em_o = _kernel(
         lambda m, r: march_planar_disk_volumetric_pallas(
-            m, r, c1, c2, nz, disk=disk, interpret=_ipret(), **kw))(
-        met, rays)
+            m, r, c1, c2, nz, disk=disk, **kw), met, rays)
     ks = disk.starlight_scatter * disk.kappa
     expect = (ks * 0.2 * L / disk.kappa                 # albedo_b = 0.2
               * (1.0 - np.exp(-np.asarray(tau_k))))
@@ -916,45 +690,14 @@ def gate_vol_scatter():
                        and mask.sum() > 30)}
 
 
-def gate_fused_rk45():
-    """The fused adaptive DP5(4) pipeline (round 5) vs the non-fused rk45
-    quality path, compiled on-chip, smooth-texture mismatch bounds."""
-    import jax.numpy as jnp
-    import curvis_tpu as cv
-    from curvis_tpu.ops.render_fused import render_planar_fused
-    from curvis_tpu.render.fast import render_planar_fast
-    metric = cv.EllisMetric(rho=jnp.asarray(1.0, jnp.float32))
-    yy, xx = np.mgrid[0:32, 0:64]
-    smooth = np.stack([np.sin(2 * np.pi * xx / 64) * 0.5 + 0.5, yy / 32,
-                       0.3 + 0.4 * np.cos(2 * np.pi * yy / 32)],
-                      -1).astype("float32")
-    bgp = cv.make_spherical_image(smooth)
-    bgn = cv.make_spherical_image(smooth[::-1].copy())
-    cam = cv.make_camera([0.0, 5.0, np.pi / 2, 0.0], [-1.0, 0.1, 0.05],
-                         [0.0, 0.0, 1.0], 15.0, 43.0, 64, 36,
-                         dtype=jnp.float32)
-    kw = dict(dt=0.05, max_steps=2000, escape_radius=50.0,
-              filtering="bilinear")
-    a = np.asarray(render_planar_fast(metric, cam, bgp, bgn,
-                                      stepper="rk45", backend="while",
-                                      **kw))
-    b = np.asarray(render_planar_fused(metric, cam, bgp, bgn,
-                                       stepper="rk45", rtol=1e-4,
-                                       interpret=_ipret(), **kw))
-    d = np.abs(a - b).max(-1)
-    mm = float((d > 0.02).mean())
-    med = float(np.median(d))
-    return {"mismatch_2pct": round(mm, 5), "median": round(med, 6),
-            "finite": bool(np.isfinite(b).all()),
-            "ok": bool(mm < 0.02 and med < 1e-3 and np.isfinite(b).all())}
-
-
 GATES = {
     "euler_ellis": lambda: gate_euler("ellis"),
     "euler_dneg": lambda: gate_euler("dneg"),
     "rk45": gate_rk45,
     "rk45_disk": gate_rk45_disk,
     "rk45_vol": gate_rk45_vol,
+    "fused_euler": lambda: gate_fused("euler"),
+    "fused_rk45": lambda: gate_fused("rk45"),
     "disk": gate_disk,
     "volumetric": gate_volumetric,
     "kerr": lambda: gate_kerr(False),
@@ -966,28 +709,26 @@ GATES = {
     "table_rk45": gate_table_rk45,
     "table_disk": gate_table_disk,
     "table_vol": gate_table_vol,
-    "adjoint": gate_adjoint,
-    "rk45_adjoint": gate_rk45_adjoint,
-    "rk45_adjoint_planar": gate_rk45_adjoint_planar,
     "kerr_disk": gate_kerr_disk,
     "vol_scatter": gate_vol_scatter,
-    "fused_rk45": gate_fused_rk45,
-    "disk_adjoint": gate_disk_adjoint,
-    "vol_adjoint": gate_vol_adjoint,
-    "surface_adjoint_planar": gate_surface_adjoint_planar,
 }
 
 
-def run_gates(only=None):
+def run_gates(only=None, full=False):
     """Run every (or the named) gate; returns {family: result-dict}.  A
-    gate that raises is reported as ok=False with the error string — the
-    bench must never die on a parity probe."""
+    gate that raises is reported as ok=False with the error string, so one
+    broken family does not hide the verdicts of the others; callers fail
+    on any ok=False.  ``full=True``: the README's frame sizes (module
+    docstring)."""
+    global _SIZE
+    _SIZE = _FULL if full else _SMALL
     out = {}
     for name, fn in GATES.items():
         if only and name not in only:
             continue
+        _STATS.clear()
         try:
-            out[name] = fn()
+            out[name] = dict(fn(), **_STATS)
         except Exception as e:                       # pragma: no cover
             out[name] = {"ok": False, "error": f"{type(e).__name__}: {e}"}
     return out

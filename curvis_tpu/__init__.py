@@ -1,11 +1,12 @@
-"""curvis_tpu — a TPU-native differentiable curved-spacetime renderer.
+"""curvis_tpu — a differentiable curved-spacetime renderer (JAX, GPU).
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the CurVis
 reference (a single-threaded CPU Rust raytracer of traversable wormholes,
 O. James et al. 2015): per-pixel null-geodesic integration through diagonal
 spherically symmetric metrics (Ellis, Interstellar/DNEG), equirectangular
-two-sided backgrounds, image and video rendering — re-designed for TPUs:
-batched lock-step ray marching, Pallas kernels, shardable over device meshes,
+two-sided backgrounds, image and video rendering — re-designed for
+accelerators: batched ray marching in Pallas GPU kernels, shardable over
+device meshes,
 and differentiable w.r.t. metric parameters and camera pose.
 """
 

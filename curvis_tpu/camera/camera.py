@@ -1,6 +1,6 @@
 """Pinhole camera in curved spacetime — vectorized ray generation.
 
-TPU-native re-design of the reference Camera (/root/reference/src/cameras.rs):
+Data-parallel re-design of the reference Camera (/root/reference/src/cameras.rs):
 instead of a per-pixel method call (cameras.rs:150-172), the whole pixel grid
 of ray directions is produced as one ``(H*W, 3)`` jnp computation, ready to be
 sharded across devices.  The camera itself is an immutable pytree, so "moving"

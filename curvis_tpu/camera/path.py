@@ -3,7 +3,7 @@
 Re-design of the reference's csv.rs + interpolation.rs: the path is loaded
 into numpy column arrays and interpolation is *vectorized over time* — a whole
 batch of frame timestamps lerps in one call (the frame axis is a first-class
-batch axis on TPU), instead of the reference's per-call linear scan
+batch axis on the device), instead of the reference's per-call linear scan
 (interpolation.rs:63-91).
 
 CSV schema (csv.rs:5-11): header line (ignored), then rows

@@ -1,4 +1,4 @@
-"""Command-line interface — the reference CLI surface on the TPU framework.
+"""Command-line interface — the reference CLI surface on the JAX renderer.
 
 Mirrors the reference command shape (cli.rs:3-25):
 
@@ -7,8 +7,8 @@ Mirrors the reference command shape (cli.rs:3-25):
     curvis-tpu video  BG1 BG2 [OUTPUT_FOLDER] [-v VIDEO.toml] [-m ...] ...
     curvis-tpu custom
 
-plus TPU-era additions: --renderer {symmetric,direct}, --filtering, --f64,
---seam, --gif.  Settings TOMLs fall back to packaged defaults when flags are
+plus additions: --renderer {symmetric,direct}, --filtering, --f64, --seam,
+--gif.  Settings TOMLs fall back to packaged defaults when flags are
 absent (cli.rs:211-281 semantics).
 
 Run as `python -m curvis_tpu.cli ...` or via the `curvis-tpu` entry point.
@@ -48,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--renderer", choices=["symmetric", "direct"],
                         default="symmetric",
                         help="symmetric = the reference's efficient 1-D "
-                             "reduction; direct = per-pixel TPU march")
+                             "reduction; direct = per-pixel march")
         sp.add_argument("--filtering", choices=["nearest", "bilinear"],
                         default="nearest")
         sp.add_argument("--seam", choices=["exact", "nearest_side"],
@@ -99,7 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "(direct and kerr renderers; ~1+9*FRAC cost "
                              "vs 9x for --supersample 3)")
         sp.add_argument("--f64", action="store_true",
-                        help="double precision (CPU)")
+                        help="double precision (the XLA marches, on "
+                             "whatever device is present)")
         sp.add_argument("--bg1-orient", type=float, nargs=6, default=None,
                         metavar=("FX", "FY", "FZ", "UX", "UY", "UZ"),
                         help="forward+up orientation of background 1 — "
@@ -157,7 +158,6 @@ def _load_common(args):
     if args.f64:
         import jax
         jax.config.update("jax_enable_x64", True)
-        jax.config.update("jax_platforms", "cpu")
     def orient(o):
         return (o[:3], o[3:]) if o else (None, None)
 
@@ -320,6 +320,8 @@ def custom_main(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from curvis_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     if args.command == "image":
         return image_main(args)
     if args.command == "video":

@@ -1,6 +1,6 @@
 """Equirectangular ("360-degree") background environments as pure gathers.
 
-TPU-native re-design of the reference SphericalImage
+Data-parallel re-design of the reference SphericalImage
 (/root/reference/src/images.rs:24-193): the texture lives on-device as a float
 array and direction->color lookup is a batched gather under `jit`, not a
 per-pixel method call.  Two filters:
@@ -66,18 +66,36 @@ def make_spherical_image(texture, forward=None, up=None, dtype=jnp.float32) -> S
 
 
 def load_spherical_image(path, forward=None, up=None, dtype=jnp.float32) -> SphericalImage:
-    """Load a PNG/JPEG file as a SphericalImage (images.rs:186-193)."""
-    from PIL import Image
-    with Image.open(Path(path)) as im:
-        arr = np.asarray(im.convert("RGB"))
-    return make_spherical_image(arr, forward=forward, up=up, dtype=dtype)
+    """Load an image file as a SphericalImage (images.rs:186-193).  PNG is
+    read by the built-in codec (utils/png.py); other formats need PIL."""
+    return make_spherical_image(read_image(path), forward=forward, up=up,
+                                dtype=dtype)
+
+
+def read_image(path) -> np.ndarray:
+    """(H, W, 3) uint8 RGB from a PNG (built-in codec) or, with PIL
+    installed, any format PIL reads."""
+    from curvis_tpu.utils import png
+    path = Path(path)
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == png._SIG:
+        return png.read_png(path)
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(
+            f"{path}: {path.suffix or 'this'} images need PIL (not "
+            f"installed); PNG is read without it") from None
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
 
 
 def save_image(array01, path):
-    """Save an (H, W, 3) float [0,1] array as PNG."""
-    from PIL import Image
+    """Save an (H, W, 3) float [0,1] array as PNG (built-in codec)."""
+    from curvis_tpu.utils import png
     arr = np.asarray(jnp.clip(array01, 0.0, 1.0) * 255.0).astype(np.uint8)
-    Image.fromarray(arr).save(str(path))
+    png.write_png(path, arr)
 
 
 # ---------------------------------------------------------------------------
@@ -87,7 +105,9 @@ def save_image(array01, path):
 def direction_to_theta_phi(img: SphericalImage, v_world):
     """World direction -> (theta, phi) in *image* space (images.rs:151-167):
     rotate by the inverse orientation, then spherical angles."""
-    v_img = v_world @ img.rotation            # R^{-1} v == v @ R (R orthogonal)
+    # R^{-1} v == v @ R (R orthogonal); full float32, not TF32
+    v_img = jnp.matmul(v_world, img.rotation,
+                       precision=jax.lax.Precision.HIGHEST)
     return rotations.theta_phi_from_vector3(v_img)
 
 

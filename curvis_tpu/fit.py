@@ -9,7 +9,7 @@ entry point with the features those problems actually needed:
   * **multi-start, vmapped**: lensing losses are multi-modal (photon-ring
     foldovers, the (a, inclination) rim ridge) — ``n_starts`` independent
     initializations run in ONE compiled program (``vmap`` over the start
-    axis of a ``lax.scan`` Adam loop), so a TPU explores the whole basin
+    axis of a ``lax.scan`` Adam loop), so one device explores the whole basin
     set for the price of one trajectory;
   * **annealing schedules**: a per-iteration auxiliary (e.g. a softmin
     temperature) threaded through the scan as data;
@@ -19,7 +19,7 @@ entry point with the features those problems actually needed:
     the best parameters.
 
 The reference (/root/reference) has no gradients and nothing to compare —
-this is capability the TPU-native design gets for free from JAX transforms
+this is capability the design gets for free from JAX transforms
 (vmap x scan x grad over the same marchers the renderer runs).
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Batched 3-D rotation / spherical-coordinate utilities.
 
-TPU-native re-design of the reference's orientation algebra
+Data-parallel re-design of the reference's orientation algebra
 (/root/reference/src/algebra.rs:1-134): instead of scalar nalgebra calls, every
 function here is a pure jnp function over arbitrary batch dimensions, safe under
 `jit`/`vmap` (no panics — degenerate inputs are handled with epsilon guards and

@@ -4,16 +4,14 @@ backward is checkpointed recompute (integrate/ckpt.py).
 The plain checkpointed-scan backend (physics/planar.march_planar_scan) is
 exact but its *forward* already runs at XLA scan speed: every loss
 evaluation pays max_steps trips with the carry streamed through HBM.  This
-module keeps the production forward — the Pallas Euler kernel on TPU
-(ops/march_pallas.march_planar_pallas, sprint phase, early tile exit), the
-masked while-loop elsewhere — and pays the scan-like cost only in the
+module keeps the production forward — the Pallas Euler kernel on the GPU
+(ops/march_pallas.march_planar_pallas, sprint phase, early block exit),
+the masked while-loop elsewhere — and pays the scan-like cost only in the
 backward pass, which re-marches the trajectory from the spawn state in
 segments and pulls the cotangent through each segment with ``jax.vjp`` of
 the masked segment map (exact discrete gradients; see integrate/ckpt.py for
-why this beats reverse-time replay).  On TPU the backward runs as the
-Pallas kernel pair in ops/ckpt_adjoint_pallas.py — checkpoints stream
-through HBM, segment VJPs stay VMEM-resident, built on the forward kernels'
-exact _deriv_fns algebra so the recomputed map is the marched map.
+why this beats reverse-time replay).  The backward is XLA on every
+platform.
 
 Per-ray escape freezing is respected: on backward step j, only rays whose
 forward march was still active at step j (j < steps_i) participate; frozen
@@ -42,10 +40,6 @@ from jax import lax
 from curvis_tpu.integrate.ckpt import ckpt_adjoint_backward
 from curvis_tpu.physics.planar import (PlanarRays, PlanarResult, planar_rhs)
 
-# Pallas backward segment length: 32 Euler steps re-marched per VJP pull.
-_PALLAS_SEG = 32
-
-
 def _step(metric, y, b, dt):
     """One forward-Euler planar step of y = (l, psi, p_l)."""
     l, psi, p_l = y
@@ -60,7 +54,7 @@ def _step_theta(dt, theta, y):
 
 
 class _ParamRow:
-    """Duck-typed SMEM row whose metric-parameter slots hold per-lane
+    """Duck-typed scalar row whose metric-parameter slots hold per-lane
     ARRAYS — lets ops/march_pallas._deriv_fns compute per-ray derivatives
     for jax.vjp without duplicating the metric algebra."""
 
@@ -69,45 +63,6 @@ class _ParamRow:
 
     def __getitem__(self, key):
         return self._v[key[1]]
-
-
-_PLANAR_MAKE_STEP = {}
-
-
-def _planar_make_step(kind):
-    """Cached (so the Pallas jit cache keys stably) make_step builder for
-    the checkpoint kernels, SMEM row = [dt, 0, ...].  Named-param kinds:
-    theta = (p0, p1, p2, b) per-lane (slots 2-4).  Table kinds
-    ('cheb{K}{h|c}', metrics/table.py): theta = (s^2, c1..., c2..., b) —
-    the 2(K+1) Chebyshev/monomial coefficients ride as per-lane broadcasts
-    in slots 10.., so the segment VJP yields per-ray cotangents of the
-    TABLE ITSELF (gradients w.r.t. the shape of r(l) at kernel speed)."""
-    fn = _PLANAR_MAKE_STEP.get(kind)
-    if fn is not None:
-        return fn
-    from curvis_tpu.ops.march_pallas import _deriv_fns
-    deriv = _deriv_fns(kind)
-    ncoef = 2 * (int(kind[4:-1]) + 1) if kind.startswith("cheb") else 0
-
-    def make_step(params_ref):
-        dt = params_ref[0, 0]
-
-        def step(theta, y):
-            if ncoef:
-                slots = {2: theta[0]}
-                for i in range(ncoef):
-                    slots[10 + i] = theta[1 + i]
-                b = theta[-1]
-            else:
-                slots = {2: theta[0], 3: theta[1], 4: theta[2]}
-                b = theta[-1]
-            l, psi, p_l = y
-            dl, dpsi, dpl = deriv(_ParamRow(slots), l, p_l, b, b * b)
-            return l + dt * dl, psi + dt * dpsi, p_l + dt * dpl
-        return step
-
-    _PLANAR_MAKE_STEP[kind] = make_step
-    return make_step
 
 
 def _forward(metric, state, b, dt, max_steps, escape_radius):
@@ -149,15 +104,14 @@ def _march_core(max_steps, escape_radius, backend, segment, metric, state,
 
 def _march_fwd(max_steps, escape_radius, backend, segment, metric, state,
                b, dt):
-    if backend.startswith("pallas"):
+    if backend == "pallas":
         from curvis_tpu.ops.march_pallas import march_planar_pallas
         l, psi, p_l = state
         rays = PlanarRays(l=l, psi=psi, p_l=p_l, b=b,
                           r_hat=jnp.zeros((1, 3), l.dtype),
                           e2=jnp.zeros((1, 3), l.dtype))
         res = march_planar_pallas(metric, rays, dt=dt, max_steps=max_steps,
-                                  escape_radius=escape_radius, sort=False,
-                                  interpret=backend.endswith("interpret"))
+                                  escape_radius=escape_radius)
         out = (res.l, res.psi, res.p_l, res.sign, res.steps)
     else:
         out = _forward(metric, state, b, dt, max_steps, escape_radius)
@@ -172,36 +126,10 @@ def _march_bwd(max_steps, escape_radius, backend, segment, res, cot):
     cot3 = tuple(jnp.where(smooth, c, 0.0) for c in cot3)
     steps_eff = jnp.where(smooth, steps, 0)
 
-    if backend.startswith("pallas"):
-        from curvis_tpu.ops.ckpt_adjoint_pallas import (
-            ckpt_adjoint_backward_pallas)
-        from curvis_tpu.ops.march_pallas import _metric_kind_and_params
-        dtype = state0[0].dtype
-        kind, row = _metric_kind_and_params(metric, dt, escape_radius, dtype)
-        one = jnp.ones_like(state0[0])
-        if kind.startswith("cheb"):
-            ncoef = 2 * (int(kind[4:-1]) + 1)
-            theta = ((row[0, 2] * one,)
-                     + tuple(row[0, 10 + i] * one for i in range(ncoef))
-                     + (b,))
-        else:
-            theta = (row[0, 2] * one, row[0, 3] * one, row[0, 4] * one, b)
-        lam, g = ckpt_adjoint_backward_pallas(
-            _planar_make_step(kind), row, tuple(state0), theta,
-            steps_eff.astype(dtype), cot3, max_steps=max_steps, seg=segment,
-            interpret=backend.endswith("interpret"))
-        if kind.startswith("cheb"):
-            g_metric = _table_metric_grads(
-                metric, [jnp.sum(gi) for gi in g[:-1]])
-        else:
-            g012 = (jnp.sum(g[0]), jnp.sum(g[1]), jnp.sum(g[2]))
-            g_metric = _planar_metric_grads(metric, g012)
-        g_b = g[-1]
-    else:
-        step_fn = partial(_step_theta, dt)
-        (g_metric, g_b), lam = ckpt_adjoint_backward(
-            step_fn, (metric, b), tuple(state0), steps_eff, cot3,
-            max_steps=max_steps, segment=segment)
+    step_fn = partial(_step_theta, dt)
+    (g_metric, g_b), lam = ckpt_adjoint_backward(
+        step_fn, (metric, b), tuple(state0), steps_eff, cot3,
+        max_steps=max_steps, segment=segment)
 
     return g_metric, lam, g_b, jnp.zeros_like(dt)
 
@@ -221,7 +149,7 @@ def _table_metric_grads(metric, g_sums):
 
 
 def _planar_metric_grads(metric, g012):
-    """Map the SMEM param-slot cotangents (slots 2-4 of the row built by
+    """Map the scalar-row param-slot cotangents (slots 2-4 of the row built by
     ops/march_pallas._metric_kind_and_params) back onto the metric pytree's
     fields."""
     import dataclasses
@@ -247,7 +175,7 @@ def _planar_metric_grads(metric, g012):
         return dataclasses.replace(zero_m, m=cast(g0, metric.m),
                                    q=cast(2.0 * metric.q * g1, metric.q))
     raise NotImplementedError(
-        f"planar pallas adjoint: unsupported metric {type(metric).__name__}")
+        f"planar adjoint: unsupported metric {type(metric).__name__}")
 
 
 _march_core.defvjp(_march_fwd, _march_bwd)
@@ -259,12 +187,12 @@ def march_planar_adjoint(metric, state, b, dt, max_steps, escape_radius,
 
     ``state``: (l, psi, p_l) arrays; returns (l, psi, p_l, sign, steps).
     Gradients flow to ``metric`` (parameter pytree), ``state`` and ``b``.
-    ``backend='pallas'`` runs forward AND backward as Pallas kernels;
-    'xla' (default) is the scan-based pair.  ``segment`` is the backward
-    recompute length (default: 32 on Pallas, ~sqrt(max_steps) on XLA)."""
+    ``backend='pallas'`` marches the forward with the Pallas kernel, 'xla'
+    (default) with the while-loop; the backward is the XLA checkpointed
+    recompute either way.  ``segment`` is the backward recompute length
+    (default ~sqrt(max_steps))."""
     if segment is None:
-        segment = (_PALLAS_SEG if backend.startswith("pallas")
-                   else max(1, int(max_steps ** 0.5)))
+        segment = max(1, int(max_steps ** 0.5))
     return _march_core(max_steps, escape_radius, backend, int(segment),
                        metric, state, b, dt)
 
@@ -273,10 +201,11 @@ def march_planar_adjoint_rays(metric, rays: PlanarRays, *, dt, max_steps,
                               escape_radius, backend="auto",
                               segment=None) -> PlanarResult:
     """PlanarRays-facing wrapper with the standard result contract.
-    ``backend='auto'`` picks the Pallas kernel pair on TPU."""
+    ``backend='auto'`` marches the forward with the kernel where the
+    dispatch rule picks it (curvis_tpu/dispatch.py)."""
     if backend == "auto":
-        from curvis_tpu.integrate.march import _on_tpu
-        backend = "pallas" if _on_tpu() else "xla"
+        from curvis_tpu.dispatch import use_kernel
+        backend = "pallas" if use_kernel(rays.l.dtype) else "xla"
     l, psi, p_l, sign, steps = march_planar_adjoint(
         metric, (rays.l, rays.psi, rays.p_l), rays.b,
         jnp.asarray(dt, rays.l.dtype), max_steps, escape_radius,

@@ -17,11 +17,11 @@ Unlike reverse-time replay (fixed-point inversion of the step), this is
   * **bounded-memory**: O(max_steps / segment) checkpoints + O(segment)
     rematerialized states, never O(max_steps).
 
-This module is the XLA reference implementation (used on CPU/GPU and as the
-correctness oracle for the Pallas twin in ops/ckpt_adjoint_pallas.py, which
-streams the checkpoints through HBM and runs each segment VJP VMEM-resident).
+This module is the backward of every adjoint front door (integrate/
+adjoint.py, kerr_adjoint.py, rk45_adjoint*.py, *_surface_adjoint.py), on
+every platform.
 
-Contract shared by both implementations:
+Contract:
 
   ``step_fn(theta, y) -> y`` — one unmasked step; ``y`` is a tuple of
   per-ray arrays, ``theta`` any differentiable pytree (metric parameters,

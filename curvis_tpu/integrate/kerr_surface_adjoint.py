@@ -17,7 +17,7 @@ steppers by extending the checkpointed-recompute adjoints
     accumulators ``(tau, em_r, em_g, em_b)`` and the differentiated
     parameter tuple gains the 10 emission-row entries (r_in, r_out + the 8
     ``_vol_param_slots``), passed as ONE traced vector consumed by both the
-    forward kernel's SMEM row and the backward replay — so gradients flow
+    forward kernel's scalar row and the backward replay — so gradients flow
     to the DISK parameters (r_in/r_out/kappa/h_rel/t_peak/...) through the
     in-march quadrature, everything smooth.
 
@@ -33,10 +33,10 @@ bits of 1/x for |x| > eps), which is everywhere above the capture radius —
 so replay fidelity for the steps that recorded the hits is preserved.
 Blown-up rays (sign 3) stay fully excluded.
 
-Forward = the production marchers (Pallas kernels on TPU, XLA while-loops
-built on the identical step maps elsewhere); backward = integrate/ckpt.py
-(XLA) or ops/ckpt_adjoint_pallas.py (VMEM-resident kernel pair) — the same
-generic machinery, just with n_state up to 13.
+Forward = the production marchers (Pallas kernels on the GPU, XLA
+while-loops built on the identical step maps elsewhere); backward =
+integrate/ckpt.py — the same generic machinery, just with n_state up to
+13.
 
 Reference anchor: this generalizes the same recurrence everything else
 does, /root/reference/src/metrics.rs:283-297 — which has no disks, no Kerr,
@@ -61,9 +61,6 @@ from curvis_tpu.ops.march_pallas import (_DP_A, _DP_B4, _DP_B5,
                                          _kerr_vol_emission)
 from curvis_tpu.physics import hamiltonian as ham
 
-_PALLAS_SEG_FIXED = 32
-_PALLAS_SEG_RK45 = 16
-
 
 # ---------------------------------------------------------------------------
 # Traced volumetric parameter row
@@ -72,12 +69,12 @@ _PALLAS_SEG_RK45 = 16
 def build_vol_row(disk, disk_theta=None, dtype=jnp.float32):
     """The (10,) differentiable emission row [r_in, r_out, h2, inv_norm,
     kappa, tau_max, t_peak, emis_q, spin_sign, t_scale] consumed by the
-    volumetric kernels' SMEM layout (ops/march_pallas._vol_param_slots
+    volumetric kernels' scalar-row layout (ops/march_pallas._vol_param_slots
     order) — computed with jnp so ``disk_theta`` overrides (a dict of
     traced scalars keyed by DiskParams field names: r_inner, r_outer,
     h_rel, kappa, t_peak, emissivity_index, spin_sign) chain-rule through
     the composite slots (inv_norm, t_scale).  Built ONCE per march so the
-    forward SMEM row and the backward replay see identical bits."""
+    forward scalar row and the backward replay see identical bits."""
     from curvis_tpu.render.disk import DIFF_DISK_KEYS
     ov = disk_theta or {}
     unknown = set(ov) - DIFF_DISK_KEYS
@@ -117,7 +114,7 @@ def build_vol_row(disk, disk_theta=None, dtype=jnp.float32):
 
 
 def _vol_param_row_ref(M, a, q2, vol):
-    """Duck-typed SMEM row for `_kerr_vol_emission`: metric params at slots
+    """Duck-typed scalar row for `_kerr_vol_emission`: metric params at slots
     2-4, (r_in, r_out) at 6-7, the 8 emission slots at VOL_BLOCK_KERR+ —
     exactly the Kerr kernels' layout, so the replay runs the identical
     emission algebra on identical values.  A scattering tail (len(vol) >
@@ -224,41 +221,6 @@ def _vol_step(blackbody, beaming, dt, axis_u0, far_r0, theta, y):
             emb + jnp.where(ok, dte * db_, zero))
 
 
-_FIXED_MAKE_STEP = {}
-
-
-def _fixed_make_step(kind):
-    """Cached make_step builders for the Pallas ckpt pair, SMEM row =
-    [dt, axis_u0, far_r0, 0].  kind = 'disk' | ('vol', blackbody,
-    beaming)."""
-    fn = _FIXED_MAKE_STEP.get(kind)
-    if fn is not None:
-        return fn
-    if kind == "disk":
-        def make_step(params_ref):
-            dt = params_ref[0, 0]
-            axis_u0 = params_ref[0, 1]
-            far_r0 = params_ref[0, 2]
-
-            def step(theta, y):
-                return _disk_step(dt, axis_u0, far_r0, theta, y)
-            return step
-    else:
-        _, blackbody, beaming = kind
-
-        def make_step(params_ref):
-            dt = params_ref[0, 0]
-            axis_u0 = params_ref[0, 1]
-            far_r0 = params_ref[0, 2]
-
-            def step(theta, y):
-                return _vol_step(blackbody, beaming, dt, axis_u0, far_r0,
-                                 theta, y)
-            return step
-    _FIXED_MAKE_STEP[kind] = make_step
-    return make_step
-
-
 # ---------------------------------------------------------------------------
 # Forward XLA twins (masked while-loops on the identical step maps)
 # ---------------------------------------------------------------------------
@@ -322,13 +284,12 @@ def _disk_core(max_steps, axis_u0, segment, backend, metric, x0, p0, dt,
 
 def _disk_fwd(max_steps, axis_u0, segment, backend, metric, x0, p0, dt,
               escape_radius, far_r0, band):
-    if backend.startswith("pallas"):
+    if backend == "pallas":
         from curvis_tpu.ops.march_pallas import march_kerr_pallas
         x, p, sign, steps, (h1, h2) = march_kerr_pallas(
             metric, x0, p0, dt=dt, max_steps=max_steps,
             escape_radius=escape_radius, disk=(band[0], band[1]),
-            axis_u0=axis_u0, far_r0=far_r0,
-            interpret=backend.endswith("interpret"))
+            axis_u0=axis_u0, far_r0=far_r0)
     else:
         E = -p0[:, 0]
         L = p0[:, 3]
@@ -369,30 +330,13 @@ def _disk_bwd(max_steps, axis_u0, segment, backend, res, cot):
     cot12 = cot_state + cot_hits
     steps_eff = jnp.where(replayable, steps, 0)
 
-    if backend.startswith("pallas"):
-        from curvis_tpu.ops.ckpt_adjoint_pallas import (
-            ckpt_adjoint_backward_pallas)
-        one = jnp.ones_like(y0[0])
-        theta = (metric.m * one, metric.a * one, q2 * one, E, L,
-                 band[0] * one, band[1] * one)
-        params = jnp.stack([jnp.asarray(v, dtype)
-                            for v in (dt, axis_u0, far_r0, 0.0)]
-                           ).reshape(1, 4)
-        lam, g = ckpt_adjoint_backward_pallas(
-            _fixed_make_step("disk"), params, y0, theta,
-            steps_eff.astype(dtype), cot12, max_steps=max_steps,
-            seg=segment, interpret=backend.endswith("interpret"))
-        g_m, g_a, g_q2 = (jnp.sum(g[0]), jnp.sum(g[1]), jnp.sum(g[2]))
-        gE, gL = g[3], g[4]
-        g_band = jnp.stack([jnp.sum(g[5]), jnp.sum(g[6])]).astype(band.dtype)
-    else:
-        theta = (metric.m, metric.a, q2, E, L, band[0], band[1])
-        step_fn = partial(_disk_step, dt, axis_u0, far_r0)
-        d_theta, lam = ckpt_adjoint_backward(
-            step_fn, theta, y0, steps_eff, cot12, max_steps=max_steps,
-            segment=segment)
-        g_m, g_a, g_q2, gE, gL = d_theta[:5]
-        g_band = jnp.stack([d_theta[5], d_theta[6]]).astype(band.dtype)
+    theta = (metric.m, metric.a, q2, E, L, band[0], band[1])
+    step_fn = partial(_disk_step, dt, axis_u0, far_r0)
+    d_theta, lam = ckpt_adjoint_backward(
+        step_fn, theta, y0, steps_eff, cot12, max_steps=max_steps,
+        segment=segment)
+    g_m, g_a, g_q2, gE, gL = d_theta[:5]
+    g_band = jnp.stack([d_theta[5], d_theta[6]]).astype(band.dtype)
 
     g_metric = _metric_grads(metric, g_m, g_a, g_q2)
     # ct_prev0 = cos(theta0): its cotangent chain-rules into the spawn theta
@@ -418,11 +362,10 @@ def march_kerr_disk_adjoint(metric, x0, p0, *, dt, max_steps, escape_radius,
     metric pytree, x0, p0 and (r_inner, r_outer) — the latter a.e. only
     through the smooth shading (the in-band gate itself is discrete)."""
     if backend == "auto":
-        from curvis_tpu.integrate.march import _on_tpu
-        backend = "pallas" if _on_tpu() else "xla"
+        from curvis_tpu.dispatch import use_kernel
+        backend = "pallas" if use_kernel(x0.dtype) else "xla"
     if segment is None:
-        segment = (_PALLAS_SEG_FIXED if backend.startswith("pallas")
-                   else max(1, int(max_steps ** 0.5)))
+        segment = max(1, int(max_steps ** 0.5))
     dtype = x0.dtype
     if far_r0 is None:
         far_r0 = jnp.asarray(1e30, dtype)
@@ -449,7 +392,7 @@ def _vol_core(max_steps, axis_u0, segment, backend, modes, metric, x0, p0,
 def _vol_fwd(max_steps, axis_u0, segment, backend, modes, metric, x0, p0,
              dt, escape_radius, far_r0, vol_row):
     disk_static, blackbody, beaming = modes
-    if backend.startswith("pallas"):
+    if backend == "pallas":
         from curvis_tpu.ops.march_pallas import march_kerr_pallas
         x, p, sign, steps, (tau, em) = march_kerr_pallas(
             metric, x0, p0, dt=dt, max_steps=max_steps,
@@ -457,8 +400,7 @@ def _vol_fwd(max_steps, axis_u0, segment, backend, modes, metric, x0, p0,
             vol_row=vol_row[:10],
             scatter_block=(vol_row[10:] if vol_row.shape[0] > 10
                            else None),
-            axis_u0=axis_u0, far_r0=far_r0,
-            interpret=backend.endswith("interpret"))
+            axis_u0=axis_u0, far_r0=far_r0)
     else:
         E = -p0[:, 0]
         L = p0[:, 3]
@@ -498,35 +440,16 @@ def _vol_bwd(max_steps, axis_u0, segment, backend, modes, res, cot):
                 for c in (cot_tau,) + tuple(cot_em))
     steps_eff = jnp.where(replayable, steps, 0)
 
-    if backend.startswith("pallas"):
-        from curvis_tpu.ops.ckpt_adjoint_pallas import (
-            ckpt_adjoint_backward_pallas)
-        one = jnp.ones_like(y0[0])
-        n_row = vol_row.shape[0]
-        theta = (metric.m * one, metric.a * one, q2 * one, E, L) \
-            + tuple(vol_row[i] * one for i in range(n_row))
-        params = jnp.stack([jnp.asarray(v, dtype)
-                            for v in (dt, axis_u0, far_r0, 0.0)]
-                           ).reshape(1, 4)
-        lam, g = ckpt_adjoint_backward_pallas(
-            _fixed_make_step(("vol", blackbody, beaming)), params, y0,
-            theta, steps_eff.astype(dtype), cot9, max_steps=max_steps,
-            seg=segment, interpret=backend.endswith("interpret"))
-        g_m, g_a, g_q2 = (jnp.sum(g[0]), jnp.sum(g[1]), jnp.sum(g[2]))
-        gE, gL = g[3], g[4]
-        g_vol = jnp.stack([jnp.sum(g[5 + i]) for i in range(n_row)]
-                          ).astype(vol_row.dtype)
-    else:
-        n_row = vol_row.shape[0]
-        theta = ((metric.m, metric.a, q2, E, L)
-                 + tuple(vol_row[i] for i in range(n_row)))
-        step_fn = partial(_vol_step, blackbody, beaming, dt, axis_u0,
-                          far_r0)
-        d_theta, lam = ckpt_adjoint_backward(
-            step_fn, theta, y0, steps_eff, cot9, max_steps=max_steps,
-            segment=segment)
-        g_m, g_a, g_q2, gE, gL = d_theta[:5]
-        g_vol = jnp.stack(list(d_theta[5:5 + n_row])).astype(vol_row.dtype)
+    n_row = vol_row.shape[0]
+    theta = ((metric.m, metric.a, q2, E, L)
+             + tuple(vol_row[i] for i in range(n_row)))
+    step_fn = partial(_vol_step, blackbody, beaming, dt, axis_u0,
+                      far_r0)
+    d_theta, lam = ckpt_adjoint_backward(
+        step_fn, theta, y0, steps_eff, cot9, max_steps=max_steps,
+        segment=segment)
+    g_m, g_a, g_q2, gE, gL = d_theta[:5]
+    g_vol = jnp.stack(list(d_theta[5:5 + n_row])).astype(vol_row.dtype)
 
     g_metric = _metric_grads(metric, g_m, g_a, g_q2)
     g_x0 = jnp.stack([jnp.zeros_like(lam[0]), lam[0], lam[1], lam[2]],
@@ -551,11 +474,10 @@ def march_kerr_vol_adjoint(metric, x0, p0, disk, *, dt, max_steps,
     p0 AND the disk parameters: pass traced overrides in ``disk_theta``
     (see build_vol_row) — the whole gas quadrature is smooth in them."""
     if backend == "auto":
-        from curvis_tpu.integrate.march import _on_tpu
-        backend = "pallas" if _on_tpu() else "xla"
+        from curvis_tpu.dispatch import use_kernel
+        backend = "pallas" if use_kernel(x0.dtype) else "xla"
     if segment is None:
-        segment = (_PALLAS_SEG_FIXED if backend.startswith("pallas")
-                   else max(1, int(max_steps ** 0.5)))
+        segment = max(1, int(max_steps ** 0.5))
     dtype = x0.dtype
     if far_r0 is None:
         far_r0 = jnp.asarray(1e30, dtype)
@@ -723,30 +645,6 @@ def _rk45_surface_iter(consts, theta, y, track_disk, vol, blackbody,
     return y1, (accept, esc_set, cap_i, blow_i, stall_i, opaque_i)
 
 
-_RK45_MAKE_STEP = {}
-
-
-def _rk45_surface_make_step(key):
-    """Cached make_step builders for the Pallas ckpt pair, SMEM row =
-    [rtol, atol, dt_min, dt_max, R, r_cap, dt0].  key = (track_disk, vol,
-    blackbody, beaming, freeze)."""
-    fn = _RK45_MAKE_STEP.get(key)
-    if fn is not None:
-        return fn
-    track_disk, vol, blackbody, beaming, freeze = key
-
-    def make_step(params_ref):
-        consts = tuple(params_ref[0, i] for i in range(7))
-
-        def step(theta, y):
-            return _rk45_surface_iter(consts, theta, y, track_disk, vol,
-                                      blackbody, beaming, freeze)[0]
-        return step
-
-    _RK45_MAKE_STEP[key] = make_step
-    return make_step
-
-
 def _forward_xla_rk45_surface(consts, theta, x0, p0, extras0, dt0,
                               max_steps, max_iters, track_disk, vol,
                               blackbody, beaming):
@@ -800,12 +698,11 @@ def _rk45_surf_fwd(max_steps, max_iters, segment, backend, modes, metric,
     track_disk, disk_static, blackbody, beaming, freeze = modes
     vol = not track_disk
     rtol, atol, dt_min, dt_max, R, _, _ = (consts[i] for i in range(7))
-    if backend.startswith("pallas"):
+    if backend == "pallas":
         from curvis_tpu.ops.march_pallas import march_kerr_rk45_pallas
         kw = dict(dt0=dt0, max_steps=max_steps, max_iters=max_iters,
                   escape_radius=R, rtol=rtol, atol=atol, dt_min=dt_min,
-                  dt_max=dt_max, return_iters=True,
-                  interpret=backend.endswith("interpret"))
+                  dt_max=dt_max, return_iters=True)
         if track_disk:
             x, p, sign, steps, (h1, h2), iters = march_kerr_rk45_pallas(
                 metric, x0, p0, disk=(surf[0], surf[1]), **kw)
@@ -868,34 +765,18 @@ def _rk45_surf_bwd(max_steps, max_iters, segment, backend, modes, res, cot):
     iters_eff = jnp.where(replayable, iters, 0)
     key = (track_disk, vol, blackbody, beaming, freeze)
 
-    if backend.startswith("pallas"):
-        from curvis_tpu.ops.ckpt_adjoint_pallas import (
-            ckpt_adjoint_backward_pallas)
-        one = jnp.ones_like(y0[0])
-        theta = (metric.m * one, metric.a * one, q2 * one, E, L) \
-            + tuple(surf[i] * one for i in range(n_surf))
-        params = jnp.reshape(consts.astype(dtype), (1, 7))
-        lam, g = ckpt_adjoint_backward_pallas(
-            _rk45_surface_make_step(key), params, y0, theta,
-            iters_eff.astype(dtype), cot_full, max_steps=max_iters,
-            seg=segment, interpret=backend.endswith("interpret"))
-        g_m, g_a, g_q2 = (jnp.sum(g[0]), jnp.sum(g[1]), jnp.sum(g[2]))
-        gE, gL = g[3], g[4]
-        g_surf = jnp.stack([jnp.sum(g[5 + i]) for i in range(n_surf)]
-                           ).astype(surf.dtype)
-    else:
-        theta = ((metric.m, metric.a, q2, E, L)
-                 + tuple(surf[i] for i in range(n_surf)))
-        cs = tuple(consts[i] for i in range(7))
+    theta = ((metric.m, metric.a, q2, E, L)
+             + tuple(surf[i] for i in range(n_surf)))
+    cs = tuple(consts[i] for i in range(7))
 
-        def step_fn(th_, y_):
-            return _rk45_surface_iter(cs, th_, y_, track_disk, vol,
-                                      blackbody, beaming, freeze)[0]
-        d_theta, lam = ckpt_adjoint_backward(
-            step_fn, theta, y0, iters_eff, cot_full, max_steps=max_iters,
-            segment=segment)
-        g_m, g_a, g_q2, gE, gL = d_theta[:5]
-        g_surf = jnp.stack(list(d_theta[5:5 + n_surf])).astype(surf.dtype)
+    def step_fn(th_, y_):
+        return _rk45_surface_iter(cs, th_, y_, track_disk, vol,
+                                  blackbody, beaming, freeze)[0]
+    d_theta, lam = ckpt_adjoint_backward(
+        step_fn, theta, y0, iters_eff, cot_full, max_steps=max_iters,
+        segment=segment)
+    g_m, g_a, g_q2, gE, gL = d_theta[:5]
+    g_surf = jnp.stack(list(d_theta[5:5 + n_surf])).astype(surf.dtype)
 
     g_metric = _metric_grads(metric, g_m, g_a, g_q2)
     g_th0 = lam[1]
@@ -917,15 +798,12 @@ def _rk45_surface_common(metric, x0, p0, *, dt0, max_steps, escape_radius,
                          rtol, atol, dt_min, dt_max, max_iters, backend,
                          segment, freeze_controller, modes, surf):
     if backend == "auto":
-        from curvis_tpu.integrate.march import _on_tpu
-        backend = "pallas" if _on_tpu() else "xla"
+        from curvis_tpu.dispatch import use_kernel
+        backend = "pallas" if use_kernel(x0.dtype) else "xla"
     if max_iters is None:
         max_iters = 2 * max_steps
-    # even replay bound (unroll-2 kernel body; integrate/rk45_adjoint.py)
-    max_iters = int(max_iters) + (int(max_iters) & 1)
     if segment is None:
-        segment = (_PALLAS_SEG_RK45 if backend.startswith("pallas")
-                   else max(1, int(max_iters ** 0.5)))
+        segment = max(1, int(max_iters ** 0.5))
     dtype = x0.dtype
     if dt_max is None:
         dt_max = escape_radius / 8.0

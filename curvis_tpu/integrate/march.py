@@ -1,17 +1,17 @@
 """Batched ray-march: integrate photon bundles until they escape.
 
-TPU-native re-design of the reference's per-ray escape loop
+Data-parallel re-design of the reference's per-ray escape loop
 (/root/reference/src/systems.rs:115-139): instead of one sequential Rust loop
 per photon, the whole ray bundle advances in lock-step under `jit`, with
-per-ray termination masks.  Three backends:
+per-ray termination masks.  Backends of the 4-state march:
 
-  - ``while``  : `lax.while_loop` with global early exit — fast forward-only
-                 path on CPU/TPU via XLA fusion.
+  - ``while``  : `lax.while_loop` with global early exit — the forward-only
+                 path via XLA fusion.
   - ``scan``   : fixed-length `lax.scan` in two checkpointed levels —
                  reverse-mode differentiable (gradients w.r.t. metric
                  parameters, camera pose, ray directions).
-  - ``pallas`` : hand-written TPU kernel with per-tile early exit
-                 (:mod:`curvis_tpu.ops.march_pallas`) — the production path.
+The production march is the planar reduction, whose kernels live in
+:mod:`curvis_tpu.ops.march_pallas` (chosen by :mod:`curvis_tpu.dispatch`).
 
 Escape semantics match the reference exactly: after each step, a ray with
 l > escape_radius freezes with sign +1, l < -escape_radius with sign -1
@@ -127,31 +127,16 @@ def march_scan(metric, x0, p0, *, dt, max_steps, escape_radius,
 
 def march(metric, x0, p0, *, dt, max_steps, escape_radius, stepper="euler",
           backend="auto", differentiable=False) -> MarchResult:
-    """Dispatching entry point.
-
-    ``backend='auto'`` picks the Pallas TPU kernel on TPU for forward Euler
-    f32 marches, the while-loop otherwise; ``differentiable=True`` forces the
-    checkpointed scan.
+    """Dispatching entry point of the 4-state march: the while-loop, or the
+    checkpointed scan for ``differentiable=True`` / ``backend='scan'``.
+    (The 4-state march has no kernel; kernels run the planar reduction,
+    render/direct.py ``method='planar'``.)
     """
     if differentiable or backend == "scan":
         return march_scan(metric, x0, p0, dt=dt, max_steps=max_steps,
                           escape_radius=escape_radius, stepper=stepper)
-    if backend == "pallas" or (backend == "auto" and _on_tpu()):
-        from curvis_tpu.ops.march_pallas import march_pallas
-        try:
-            return march_pallas(metric, x0, p0, dt=dt, max_steps=max_steps,
-                                escape_radius=escape_radius, stepper=stepper)
-        except NotImplementedError:
-            pass
     return march_while(metric, x0, p0, dt=dt, max_steps=max_steps,
                        escape_radius=escape_radius, stepper=stepper)
-
-
-def _on_tpu() -> bool:
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
 
 
 def compute_trajectory(metric, x0, p0, *, dt, n_steps, stepper="euler"):

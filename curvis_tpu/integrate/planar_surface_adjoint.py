@@ -5,9 +5,8 @@ surface) differentiability matrix (VERDICT round-4 #1).
 The reference's own metric family (Ellis/DNEG/flat + the
 Schwarzschild/RN/tabulated upgrades) renders disks through the planar
 reduction; through round 4 none of those disk images were differentiable.
-Here the checkpointed-recompute machinery (integrate/ckpt.py +
-ops/ckpt_adjoint_pallas.py) runs on extended step maps that mirror the
-production kernels bit-for-bit:
+Here the checkpointed-recompute machinery (integrate/ckpt.py) runs on
+extended step maps that mirror the production kernels bit-for-bit:
 
   * **Euler thin disk** (ops/march_pallas._disk_kernel): state gains the
     incrementally-rotated ``(u, v)`` pair and the two crossing triples
@@ -24,7 +23,7 @@ Differentiated parameters: the metric pytree (incl. Chebyshev tables), the
 spawn state (l, psi, p_l), the conserved ``b``, the plane coefficients
 ``(c1, c2)`` (and ``nz``), and the disk's own emission row — traced
 ``disk_theta`` overrides ride the same (10,) vector through the forward
-SMEM row and the backward replay (kerr_surface_adjoint.build_vol_row).
+scalar row and the backward replay (kerr_surface_adjoint.build_vol_row).
 
 Fate policy matches the Kerr module: captured/opaque (sign 2) rays are
 included for hit/tau/em cotangents (guarded derivative closures keep their
@@ -52,8 +51,9 @@ from curvis_tpu.ops.march_pallas import (CHEB_OFF_COMPACT, CHEB_OFF_VOL,
                                          _vol_emission)
 from curvis_tpu.physics.planar import PlanarRays
 
-_PALLAS_SEG_EULER = 32
-_PALLAS_SEG_RK45 = 16
+# default backward segment lengths (steps / iterations per VJP pull)
+_SEG_EULER = 32
+_SEG_RK45 = 16
 
 
 def _n_metric(kind):
@@ -199,7 +199,7 @@ _EULER_MAKE_STEP = {}
 
 
 def _euler_make_step(key):
-    """SMEM row = [dt, 0, 0, 0].  key = (kind, 'disk') |
+    """Scalar row = [dt, 0, 0, 0].  key = (kind, 'disk') |
     (kind, 'vol', blackbody, redshift, doppler)."""
     fn = _EULER_MAKE_STEP.get(key)
     if fn is not None:
@@ -373,7 +373,7 @@ _RK45_MAKE_STEP = {}
 
 
 def _rk45_make_step(key):
-    """SMEM row = the 7 consts.  key = (kind, track_disk, vol, blackbody,
+    """Scalar row = the 7 consts.  key = (kind, track_disk, vol, blackbody,
     redshift, doppler, freeze)."""
     fn = _RK45_MAKE_STEP.get(key)
     if fn is not None:
@@ -491,8 +491,7 @@ def _pl_surf_fwd(statics, max_steps, max_iters, segment, backend, metric,
     dtype = state[0].dtype
     R = consts[4]
     kind, row = _metric_kind_and_params(metric, dt0, R, dtype)
-    if backend.startswith("pallas"):
-        interp = backend.endswith("interpret")
+    if backend == "pallas":
         rays = PlanarRays(l=state[0], psi=state[1], p_l=state[2], b=b,
                           r_hat=jnp.zeros((1, 3), dtype),
                           e2=jnp.zeros((1, 3), dtype))
@@ -502,8 +501,7 @@ def _pl_surf_fwd(statics, max_steps, max_iters, segment, backend, metric,
                     march_planar_disk_pallas
                 res, h1, h2 = march_planar_disk_pallas(
                     metric, rays, c1, c2, dt=dt0, max_steps=max_steps,
-                    escape_radius=R, r_inner=surf[0], r_outer=surf[1],
-                    interpret=interp)
+                    escape_radius=R, r_inner=surf[0], r_outer=surf[1])
                 extra = (h1, h2)
             else:
                 from curvis_tpu.ops.march_pallas import \
@@ -512,8 +510,7 @@ def _pl_surf_fwd(statics, max_steps, max_iters, segment, backend, metric,
                     metric, rays, c1, c2, nz, dt=dt0, max_steps=max_steps,
                     escape_radius=R, disk=disk_static, vol_row=surf[:10],
                     scatter_block=(surf[10:] if surf.shape[0] > 10
-                                   else None),
-                    interpret=interp)
+                                   else None))
                 extra = (tau, em)
             counts = res.steps
         else:
@@ -521,7 +518,7 @@ def _pl_surf_fwd(statics, max_steps, max_iters, segment, backend, metric,
             kw = dict(escape_radius=R, max_steps=max_steps,
                       max_iters=max_iters, rtol=consts[0], atol=consts[1],
                       dt0=dt0, dt_max=consts[3], c1=c1, c2=c2,
-                      return_iters=True, interpret=interp)
+                      return_iters=True)
             if track_disk:
                 res, h1, h2, iters = march_planar_rk45_pallas(
                     metric, rays, disk=(surf[0], surf[1]), **kw)
@@ -616,7 +613,7 @@ def _pl_surf_bwd(statics, max_steps, max_iters, segment, backend, res, cot):
         make_step = _euler_make_step(key)
         params = jnp.stack([jnp.asarray(v, dtype)
                             for v in (dt0, 0.0, 0.0, 0.0)]).reshape(1, 4)
-        seg_default = _PALLAS_SEG_EULER
+        seg_default = _SEG_EULER
     else:
         zeros_ex = (zero,) * (6 if track_disk else 4)
         y0 = tuple(state0) + (jnp.full_like(zero, dt0),) + zeros_ex
@@ -625,44 +622,23 @@ def _pl_surf_bwd(statics, max_steps, max_iters, segment, backend, res, cot):
         key = (kind, track_disk, vol, blackbody, redshift, doppler, freeze)
         make_step = _rk45_make_step(key)
         params = jnp.reshape(consts.astype(dtype), (1, 7))
-        seg_default = _PALLAS_SEG_RK45
+        seg_default = _SEG_RK45
     seg = segment if segment else seg_default
 
-    if backend.startswith("pallas"):
-        from curvis_tpu.ops.ckpt_adjoint_pallas import (
-            ckpt_adjoint_backward_pallas)
-        one = jnp.ones_like(zero)
-        mps = _metric_theta_parts(kind, row, one)
-        theta = mps + ((b, c1, c2, nz) if vol else (b, c1, c2)) \
-            + tuple(surf[i] * one for i in range(n_surf))
-        lam, g = ckpt_adjoint_backward_pallas(
-            make_step, params, y0, theta, counts_eff.astype(dtype),
-            cot_full, max_steps=replay_bound, seg=seg,
-            interpret=backend.endswith("interpret"))
-        g_metric = _metric_grads_of(kind, metric,
-                                    [jnp.sum(gi) for gi in g[:nm]])
-        g_b = g[nm]
-        g_c1 = g[nm + 1]
-        g_c2 = g[nm + 2]
-        g_nz = g[nm + 3] if vol else None
-        k0 = nm + (4 if vol else 3)
-        g_surf = jnp.stack([jnp.sum(g[k0 + i]) for i in range(n_surf)]
-                           ).astype(surf.dtype)
-    else:
-        mps = _metric_theta_parts(kind, row)
-        theta = mps + ((b, c1, c2, nz) if vol else (b, c1, c2)) \
-            + tuple(surf[i] for i in range(n_surf))
-        stepfn = make_step(params)
-        d_theta, lam = ckpt_adjoint_backward(
-            lambda th_, y_: stepfn(th_, y_), theta, y0, counts_eff,
-            cot_full, max_steps=replay_bound, segment=seg)
-        g_metric = _metric_grads_of(kind, metric, list(d_theta[:nm]))
-        g_b = d_theta[nm]
-        g_c1 = d_theta[nm + 1]
-        g_c2 = d_theta[nm + 2]
-        g_nz = d_theta[nm + 3] if vol else None
-        k0 = nm + (4 if vol else 3)
-        g_surf = jnp.stack(list(d_theta[k0:k0 + n_surf])).astype(surf.dtype)
+    mps = _metric_theta_parts(kind, row)
+    theta = mps + ((b, c1, c2, nz) if vol else (b, c1, c2)) \
+        + tuple(surf[i] for i in range(n_surf))
+    stepfn = make_step(params)
+    d_theta, lam = ckpt_adjoint_backward(
+        lambda th_, y_: stepfn(th_, y_), theta, y0, counts_eff,
+        cot_full, max_steps=replay_bound, segment=seg)
+    g_metric = _metric_grads_of(kind, metric, list(d_theta[:nm]))
+    g_b = d_theta[nm]
+    g_c1 = d_theta[nm + 1]
+    g_c2 = d_theta[nm + 2]
+    g_nz = d_theta[nm + 3] if vol else None
+    k0 = nm + (4 if vol else 3)
+    g_surf = jnp.stack(list(d_theta[k0:k0 + n_surf])).astype(surf.dtype)
 
     g_l0 = lam[0]
     g_psi0 = lam[1]
@@ -687,9 +663,9 @@ def _common(metric, state, b, c1, c2, nz, *, stepper, dt, max_steps,
             max_iters=None, backend="auto", segment=None,
             freeze_controller=False):
     if backend == "auto":
-        from curvis_tpu.integrate.march import _on_tpu
-        backend = "pallas" if _on_tpu() else "xla"
-    if stepper == "rk45" and backend.startswith("pallas") and dt_min != 1e-6:
+        from curvis_tpu.dispatch import use_kernel
+        backend = "pallas" if use_kernel(state[0].dtype) else "xla"
+    if stepper == "rk45" and backend == "pallas" and dt_min != 1e-6:
         raise ValueError(
             "backend='pallas': the planar rk45 forward kernel hardcodes its "
             "dt floor at 1e-6 (ops/march_pallas._rk45_kernel); the replay "

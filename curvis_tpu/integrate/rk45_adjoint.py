@@ -30,10 +30,9 @@ iteration:
     escape-state losses, so exact is the default.
 
 Backends mirror integrate/kerr_adjoint.py: forward = the production rk45
-marcher (Pallas kernel on TPU, XLA twin elsewhere); backward = checkpointed
-recompute through integrate/ckpt.py (XLA) or ops/ckpt_adjoint_pallas.py
-(VMEM-resident kernel pair) — the rk45 iteration drops into the same generic
-``make_step(params_ref)`` contract the fixed-RK4 pair uses.
+marcher (Pallas kernel on the GPU, XLA twin elsewhere); backward =
+checkpointed recompute through integrate/ckpt.py — the rk45 iteration drops
+into the same generic step contract the fixed-RK4 pair uses.
 
 NaN-safety: the replay *evaluates* trial stages on every masked state, and a
 wildly-overshooting rejected trial can cross Delta = 0 where the raw RHS
@@ -58,11 +57,6 @@ from jax import lax
 from curvis_tpu.integrate.ckpt import ckpt_adjoint_backward
 from curvis_tpu.integrate.kerr_adjoint import _metric_grads, _q2_of
 from curvis_tpu.ops.march_pallas import _DP_A, _DP_B4, _DP_B5
-
-# backward segment: iterations re-marched per VJP pull.  rk45 iteration
-# counts are ~10-40x smaller than fixed-RK4 step counts, so segments are
-# short; 16 keeps the (seg, tile, LANES) x 6-state VMEM scratch modest.
-_PALLAS_SEG = 16
 
 
 def _kerr_rhs_guarded(M, a, q2, E, L, r, th, p_r, p_th):
@@ -115,7 +109,7 @@ def _rk45_iter(consts, theta, y, freeze=False):
     accept/reject writeback (incl. the boundary over-reject rule) and the
     controller dt update, exactly the per-iteration semantics of
     integrate/rk45.march_kerr_rk45 / the Pallas DP kernel.  ``consts =
-    (rtol, atol, dt_min, dt_max, R, r_cap)`` (scalars, traced or SMEM
+    (rtol, atol, dt_min, dt_max, R, r_cap)`` (scalars, traced or scalar-row
     reads); ``theta = (M, a, q2, E, L)`` is the differentiated tuple.
 
     ``freeze`` stop_gradients the controller outputs (module docstring);
@@ -251,26 +245,6 @@ def _forward_xla_rk45(consts, metric, x0, p0, dt0, max_steps, max_iters):
     return x, p, sign, steps, iters
 
 
-def _rk45_make_step(params_ref):
-    """SMEM-row step builder for the Pallas checkpoint kernel pair
-    (ops/ckpt_adjoint_pallas.py contract): row = [rtol, atol, dt_min,
-    dt_max, R, r_cap].  Exact-controller variant (the default)."""
-    consts = tuple(params_ref[0, i] for i in range(6))
-
-    def step(theta, y):
-        return _rk45_step(consts, theta, y)
-    return step
-
-
-def _rk45_make_step_frozen(params_ref):
-    """freeze_controller=True twin of :func:`_rk45_make_step`."""
-    consts = tuple(params_ref[0, i] for i in range(6))
-
-    def step(theta, y):
-        return _rk45_step(consts, theta, y, freeze=True)
-    return step
-
-
 @partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2, 3, 4))
 def _march_core(max_steps, max_iters, segment, backend, freeze, metric, x0,
                 p0, dt0, consts):
@@ -282,14 +256,13 @@ def _march_core(max_steps, max_iters, segment, backend, freeze, metric, x0,
 def _march_fwd(max_steps, max_iters, segment, backend, freeze, metric, x0,
                p0, dt0, consts):
     rtol, atol, dt_min, dt_max, R, _ = consts
-    if backend.startswith("pallas"):
+    if backend == "pallas":
         kw = dict(max_steps=max_steps, max_iters=max_iters,
                   escape_radius=R, rtol=rtol, atol=atol, dt_min=dt_min,
                   dt_max=dt_max)
         from curvis_tpu.ops.march_pallas import march_kerr_rk45_pallas
         x, p, sign, steps, iters = march_kerr_rk45_pallas(
-            metric, x0, p0, dt0=dt0, return_iters=True,
-            interpret=backend.endswith("interpret"), **kw)
+            metric, x0, p0, dt0=dt0, return_iters=True, **kw)
     else:
         x, p, sign, steps, iters = _forward_xla_rk45(
             tuple(consts), metric, x0, p0, dt0, max_steps, max_iters)
@@ -314,27 +287,12 @@ def _march_bwd(max_steps, max_iters, segment, backend, freeze, res, cot):
     cot6 = tuple(jnp.where(smooth, c, 0.0) for c in cot6)
     iters_eff = jnp.where(smooth, iters, 0)
 
-    if backend.startswith("pallas"):
-        from curvis_tpu.ops.ckpt_adjoint_pallas import (
-            ckpt_adjoint_backward_pallas)
-        one = jnp.ones_like(y0[0])
-        theta = (metric.m * one, metric.a * one, q2 * one, E, L)
-        params = jnp.stack([jnp.asarray(v, dtype) for v in consts]
-                           ).reshape(1, 6)
-        mk = _rk45_make_step_frozen if freeze else _rk45_make_step
-        lam, g = ckpt_adjoint_backward_pallas(
-            mk, params, y0, theta, iters_eff.astype(dtype),
-            cot6, max_steps=max_iters, seg=segment,
-            interpret=backend.endswith("interpret"))
-        g_m, g_a, g_q2 = (jnp.sum(g[0]), jnp.sum(g[1]), jnp.sum(g[2]))
-        gE, gL = g[3], g[4]
-    else:
-        theta = (metric.m, metric.a, q2, E, L)
-        step_fn = partial(_rk45_step, tuple(consts), freeze=freeze)
-        d_theta, lam = ckpt_adjoint_backward(
-            step_fn, theta, y0, iters_eff, cot6, max_steps=max_iters,
-            segment=segment)
-        g_m, g_a, g_q2, gE, gL = d_theta
+    theta = (metric.m, metric.a, q2, E, L)
+    step_fn = partial(_rk45_step, tuple(consts), freeze=freeze)
+    d_theta, lam = ckpt_adjoint_backward(
+        step_fn, theta, y0, iters_eff, cot6, max_steps=max_iters,
+        segment=segment)
+    g_m, g_a, g_q2, gE, gL = d_theta
 
     g_metric = _metric_grads(metric, g_m, g_a, g_q2)
     # identity maps p_out[:,0] = p0[:,0], p_out[:,3] = p0[:,3] plus the
@@ -367,18 +325,12 @@ def march_kerr_rk45_adjoint(metric, x0, p0, *, dt0, max_steps,
     so pass max_steps accordingly — NOT the fixed-RK4 tens of thousands).
     """
     if backend == "auto":
-        from curvis_tpu.integrate.march import _on_tpu
-        backend = "pallas" if _on_tpu() else "xla"
+        from curvis_tpu.dispatch import use_kernel
+        backend = "pallas" if use_kernel(x0.dtype) else "xla"
     if max_iters is None:
         max_iters = 2 * max_steps
-    # the Pallas forward runs its unroll-2 body in full, so with an odd
-    # max_iters a still-active ray would record max_iters + 1 iterations
-    # while the backward replays only max_iters — silently truncating its
-    # gradient.  Keep the bound even (matches the kernel's own rounding).
-    max_iters = int(max_iters) + (int(max_iters) & 1)
     if segment is None:
-        segment = (_PALLAS_SEG if backend.startswith("pallas")
-                   else max(1, int(max_iters ** 0.5)))
+        segment = max(1, int(max_iters ** 0.5))
     dtype = x0.dtype
     if dt_max is None:
         dt_max = escape_radius / 8.0        # traced-safe (forward parity)

@@ -10,7 +10,7 @@ per-iteration semantics of ops/march_pallas._rk45_kernel) is a fixed
 smooth-a.e. map on the extended per-ray state ``(l, psi, p_l, dt)``.  The
 forward marchers count per-ray iterations (accepted + rejected,
 ``return_iters=True``), so the checkpointed-recompute machinery of
-integrate/ckpt.py + ops/ckpt_adjoint_pallas.py applies unchanged with
+integrate/ckpt.py applies unchanged with
 ``steps = iters`` and ``step_fn`` = one iteration: the replay recovers every
 controller decision bit-identically as data.
 
@@ -62,11 +62,6 @@ from curvis_tpu.ops.march_pallas import (CHEB_OFF_COMPACT, _DP_A, _DP_B4,
                                          _DP_B5, _NO_CAPTURE,
                                          _metric_kind_and_params)
 from curvis_tpu.physics.planar import PlanarRays, PlanarResult
-
-# backward segment: iterations re-marched per VJP pull (4-state scratch is
-# small, but rk45 iteration counts are short — same choice as the Kerr pair)
-_PALLAS_SEG = 16
-
 
 def _guarded_deriv_fns(kind):
     """ops/march_pallas._deriv_fns with bounded inputs + guarded
@@ -162,7 +157,7 @@ def _guarded_deriv_fns(kind):
 
 
 def _theta_slots(kind, theta):
-    """theta tuple -> (_ParamRow duck-typed SMEM row, b).  Named-param
+    """theta tuple -> (_ParamRow duck-typed scalar row, b).  Named-param
     kinds: theta = (p0, p1, p2, b) (slots 2-4); table kinds: theta =
     (s^2, c1..., c2..., b) with the coefficient tail at slot 10+
     (integrate/adjoint.py layout, so gradients of the table itself flow)."""
@@ -305,41 +300,14 @@ def _forward_xla_planar_rk45(kind, consts, theta, state, dt0, max_steps,
     return (y[0], y[1], y[2], sign, steps), iters
 
 
-_MAKE_STEP_CACHE = {}
-
-
-def _planar_rk45_make_step(kind, freeze=False):
-    """Cached (jit-cache-stable) make_step builder for the Pallas
-    checkpoint kernel pair: SMEM row = [rtol, atol, dt_min, dt_max, R,
-    r_cap]; theta per :func:`_theta_slots` with per-lane arrays."""
-    key = (kind, freeze)
-    fn = _MAKE_STEP_CACHE.get(key)
-    if fn is not None:
-        return fn
-
-    def make_step(params_ref):
-        consts = tuple(params_ref[0, i] for i in range(6))
-
-        def step(theta, y):
-            return _planar_rk45_step(kind, consts, theta, y, freeze=freeze)
-        return step
-
-    _MAKE_STEP_CACHE[key] = make_step
-    return make_step
-
-
-def _theta_of(kind, row, b, one=None):
-    """Differentiated parameter tuple from the SMEM row (+ per-ray b).
-    ``one``: broadcast metric scalars to per-lane arrays (the Pallas ckpt
-    pair sums lane cotangents; the XLA pair takes scalars directly)."""
+def _theta_of(kind, row, b):
+    """Differentiated parameter tuple from the scalar row (+ per-ray b)."""
     if kind.startswith("cheb"):
         ncoef = 2 * (int(kind[4:-1]) + 1)
         ps = ((row[0, 2],)
               + tuple(row[0, CHEB_OFF_COMPACT + i] for i in range(ncoef)))
     else:
         ps = (row[0, 2], row[0, 3], row[0, 4])
-    if one is not None:
-        ps = tuple(p * one for p in ps)
     return ps + (b,)
 
 
@@ -355,7 +323,7 @@ def _march_fwd(max_steps, max_iters, segment, backend, freeze, metric,
                state, b, dt0, consts):
     rtol, atol, dt_min, dt_max, R, _ = (consts[i] for i in range(6))
     dtype = state[0].dtype
-    if backend.startswith("pallas"):
+    if backend == "pallas":
         from curvis_tpu.ops.march_pallas import march_planar_rk45_pallas
         l, psi, p_l = state
         rays = PlanarRays(l=l, psi=psi, p_l=p_l, b=b,
@@ -364,8 +332,7 @@ def _march_fwd(max_steps, max_iters, segment, backend, freeze, metric,
         res, iters = march_planar_rk45_pallas(
             metric, rays, escape_radius=R, max_steps=max_steps,
             max_iters=max_iters, rtol=rtol, atol=atol, dt0=dt0,
-            dt_max=dt_max, return_iters=True,
-            interpret=backend.endswith("interpret"))
+            dt_max=dt_max, return_iters=True)
         out = (res.l, res.psi, res.p_l, res.sign, res.steps)
     else:
         kind, row = _metric_kind_and_params(metric, dt0, R, dtype)
@@ -392,35 +359,17 @@ def _march_bwd(max_steps, max_iters, segment, backend, freeze, res_, cot):
     kind, row = _metric_kind_and_params(metric, dt0, R, dtype)
     y0 = tuple(state0) + (jnp.full_like(state0[0], dt0),)
 
-    if backend.startswith("pallas"):
-        from curvis_tpu.ops.ckpt_adjoint_pallas import (
-            ckpt_adjoint_backward_pallas)
-        one = jnp.ones_like(state0[0])
-        theta = _theta_of(kind, row, b, one=one)
-        params6 = jnp.reshape(consts.astype(dtype), (1, 6))
-        lam, g = ckpt_adjoint_backward_pallas(
-            _planar_rk45_make_step(kind, freeze), params6, y0, theta,
-            iters_eff.astype(dtype), cot4, max_steps=max_iters, seg=segment,
-            interpret=backend.endswith("interpret"))
-        if kind.startswith("cheb"):
-            g_metric = _table_metric_grads(
-                metric, [jnp.sum(gi) for gi in g[:-1]])
-        else:
-            g_metric = _planar_metric_grads(
-                metric, (jnp.sum(g[0]), jnp.sum(g[1]), jnp.sum(g[2])))
-        g_b = g[-1]
+    theta = _theta_of(kind, row, b)
+    cs = tuple(consts[i] for i in range(6))
+    step_fn = partial(_planar_rk45_step, kind, cs, freeze=freeze)
+    d_theta, lam = ckpt_adjoint_backward(
+        step_fn, theta, y0, iters_eff, cot4, max_steps=max_iters,
+        segment=segment)
+    if kind.startswith("cheb"):
+        g_metric = _table_metric_grads(metric, list(d_theta[:-1]))
     else:
-        theta = _theta_of(kind, row, b)
-        cs = tuple(consts[i] for i in range(6))
-        step_fn = partial(_planar_rk45_step, kind, cs, freeze=freeze)
-        d_theta, lam = ckpt_adjoint_backward(
-            step_fn, theta, y0, iters_eff, cot4, max_steps=max_iters,
-            segment=segment)
-        if kind.startswith("cheb"):
-            g_metric = _table_metric_grads(metric, list(d_theta[:-1]))
-        else:
-            g_metric = _planar_metric_grads(metric, d_theta[:3])
-        g_b = d_theta[-1]
+        g_metric = _planar_metric_grads(metric, d_theta[:3])
+    g_b = d_theta[-1]
 
     # lam[3] (the dt0 sensitivity) is dropped, matching the Kerr pair: dt0
     # is a solver knob, not a model parameter
@@ -438,7 +387,7 @@ def march_planar_rk45_adjoint(metric, state, b, *, dt0, max_steps,
                               backend="auto", segment=None,
                               freeze_controller=False):
     """Differentiable error-controlled planar march: production DP5(4)
-    forward (Pallas kernel on TPU) + checkpointed-recompute backward over
+    forward (Pallas kernel on the GPU) + checkpointed-recompute backward over
     the replayed per-ray iteration sequence.  ``state = (l, psi, p_l)``;
     returns ``(l, psi, p_l, sign, steps)``.  Gradients flow to ``metric``
     (parameter pytree — including the Chebyshev table of a TabulatedMetric),
@@ -450,18 +399,17 @@ def march_planar_rk45_adjoint(metric, state, b, *, dt0, max_steps,
     to cut the replay).
     """
     if backend == "auto":
-        from curvis_tpu.integrate.march import _on_tpu
-        backend = "pallas" if _on_tpu() else "xla"
+        from curvis_tpu.dispatch import use_kernel
+        backend = "pallas" if use_kernel(state[0].dtype) else "xla"
     if max_iters is None:
         max_iters = 4 * max_steps
-    if backend.startswith("pallas") and dt_min != 1e-6:
+    if backend == "pallas" and dt_min != 1e-6:
         raise ValueError(
             "backend='pallas': the forward kernel hardcodes its dt floor at "
             "1e-6 (ops/march_pallas._rk45_kernel); the replay must use the "
             "same dt_min or knife-edge stall decisions diverge")
     if segment is None:
-        segment = (_PALLAS_SEG if backend.startswith("pallas")
-                   else max(1, int(int(max_iters) ** 0.5)))
+        segment = max(1, int(int(max_iters) ** 0.5))
     dtype = state[0].dtype
     r_cap = getattr(metric, "capture_radius", None)
     if r_cap is None:

@@ -1,6 +1,6 @@
 """Metric abstraction for diagonal, spherically symmetric spacetimes.
 
-TPU-native re-design of the reference trait `DiagonalSphericalMetric`
+Data-parallel re-design of the reference trait `DiagonalSphericalMetric`
 (/root/reference/src/metrics.rs:40-156): a metric is a small *parameter pytree*
 (a frozen dataclass registered with JAX) exposing three scalar shape functions
 ``r(l)``, ``r_squared(l)``, ``r_derivative(l)``.  Everything else — metric

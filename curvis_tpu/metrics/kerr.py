@@ -65,7 +65,7 @@ def _bl_metric(m, a, q2, x):
 def _bl_components(m, a, q2, x):
     """The 5 independent contravariant components as SoA arrays
     (g^tt, g^rr, g^thth, g^phph, g^tph) — avoids (N, 4, 4) layouts in
-    the hot march (TPU pads 4-wide minor dims to 128 lanes).
+    the hot march.
     g^tph = -a (r^2 + a^2 - Delta) / (Delta Sigma), and
     r^2 + a^2 - Delta = 2 M r - Q^2 = hmr for Kerr-Newman."""
     r, st2, sigma, delta, hmr = _bl_pieces(m, a, q2, x)

@@ -39,10 +39,9 @@ horizon needs a capture radius and its own kind).
 Gradients: a TabulatedMetric is an ordinary pytree whose *leaves are the
 coefficients*, so jax.grad through the XLA backends differentiates the
 rendered image w.r.t. the table — and via the fit's linearity, w.r.t. the
-shape of r(l) itself.  The Pallas adjoint pair covers tables too
-(integrate/adjoint.py backend='pallas': the coefficients ride theta as
-per-lane broadcasts, the segment VJP yields their cotangents in VMEM), so
-d image / d shape runs at kernel speed on chip.
+shape of r(l) itself.  The adjoint covers tables too (integrate/adjoint.py
+backend='pallas': the kernel forward marches the table, the XLA backward
+yields the coefficients' cotangents).
 """
 from __future__ import annotations
 
@@ -54,7 +53,7 @@ import numpy as np
 
 def cheb_eval(coeffs, t):
     """Clenshaw evaluation of a Chebyshev series; ``coeffs`` is any indexable
-    of scalars (a jnp array, or SMEM-row reads inside a kernel)."""
+    of scalars (a jnp array, or scalar-row reads inside a kernel)."""
     b1 = t * 0.0
     b2 = t * 0.0
     two_t = 2.0 * t

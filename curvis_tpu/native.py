@@ -8,7 +8,7 @@ Components (see native/curvis_native.cc):
   - load_path_native    : CSV camera-path loader
   - march_planar_f64    : double-precision CPU oracle march (parity gates)
   - doubly_sample_native: the adaptive-sampling driver loop in C++, calling
-                          back into a batched (jitted TPU) evaluator
+                          back into a batched (jitted device) evaluator
 """
 from __future__ import annotations
 

@@ -1,28 +1,34 @@
-"""Pallas TPU kernel for the planar ray march — the production hot loop.
+"""Pallas kernels for the ray marches — the production hot loops.
 
 The whole render cost lives in the geodesic step loop (SURVEY.md section 3.1:
 the innermost hot loop is `update_relativistic_object`, metrics.rs:283-297).
-This kernel runs the reduced planar system (physics/planar.py)
+These kernels run the reduced planar system (physics/planar.py)
 
     dl = p_l;  dpsi = b / r^2;  dp_l = b^2 r'(l) / r^3
 
-entirely in VMEM/vector registers: a 1-D grid of ray tiles, each program
-looping with a `lax.while_loop` that exits as soon as *its* tile has fully
-terminated.  Ray state never touches HBM between steps (vs the XLA
-while-loop path, which streams the carry), and escape-check semantics are
-exactly the reference's (masked per-step, post-step strict |l| > R test,
-systems.rs:126-135), so results are bit-comparable with the scan/while
-backends for the Euler stepper.  Kernels in this file:
+and the Kerr Boyer-Lindquist system with the ray state in registers: a 1-D
+grid of ray blocks (ops/launch.py), each program looping with a
+`lax.while_loop` that exits as soon as *its* block has fully terminated.
+Ray state never touches device memory between steps (vs the XLA
+while-loop path, which runs one loop iteration per launch and streams the
+carry), and escape-check semantics are exactly the reference's (masked
+per-step, post-step strict |l| > R test, systems.rs:126-135), so results
+are bit-comparable with the scan/while backends for the Euler stepper.
+Kernels in this file:
 
-  - ``_march_kernel``  : Euler parity march (maskless sprint + masked phase)
-  - ``_rk45_kernel``   : adaptive Dormand-Prince with per-ray dt
-  - ``_disk_kernel``   : Euler march + equatorial-crossing capture for
-                         accretion-disk rendering
-All support Ellis / DNEG / flat / Schwarzschild (capture via SMEM radius).
+  - ``_march_kernel``     : Euler parity march (maskless sprint + masked phase)
+  - ``_rk45_kernel``      : adaptive Dormand-Prince with per-ray dt
+  - ``_disk_kernel``      : Euler march + equatorial-crossing capture for
+                            accretion-disk rendering
+  - ``_disk_vol_kernel``  : Euler march + volumetric radiative transfer
+  - ``_kerr_kernel``      : Kerr/Kerr-Newman RK4 (+ disk or volume)
+  - ``_kerr_rk45_kernel`` : Kerr/Kerr-Newman DP5(4) (+ disk, volume, scatter)
+All planar kernels support Ellis / DNEG / flat / Schwarzschild / RN and
+Chebyshev-tabulated metrics (capture via the row's radius slot).
 
-Runtime parameters (dt, escape radius, metric params) are passed through SMEM
-so retuning them does not recompile; tile geometry / max_steps / unroll are
-compile-time.
+Runtime parameters (dt, escape radius, metric params) ride the scalar row
+so retuning them does not recompile; block size / max_steps / the Euler
+unroll are compile-time.
 """
 from __future__ import annotations
 
@@ -32,19 +38,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from curvis_tpu.metrics.base import (EllisMetric, FlatSphericalMetric,
                                      InterstellarMetric, Metric,
                                      ReissnerNordstromMetric,
                                      SchwarzschildMetric)
+from curvis_tpu.ops.launch import any_alive, launch
 from curvis_tpu.physics.planar import PlanarRays, PlanarResult
 
-LANES = 128
-
 # ---------------------------------------------------------------------------
-# SMEM row layout contract — SINGLE SOURCE OF TRUTH (VERDICT round-3
+# Scalar-row layout contract — SINGLE SOURCE OF TRUTH (VERDICT round-3
 # next-step #4: the cheb-tail offset bug class shipped twice in round 3
 # because the layout lived in three places).  Every kernel family reads its
 # named scalars through these constants, the wrapper row-builders assert
@@ -94,10 +97,11 @@ KERR_SCATTER_OFF = VOL_BLOCK_KERR + len(VOL_SLOT) + 2  # = 20
 
 
 def _atan_poly(x):
-    """Branchless arctan for the Mosaic kernel (no atan lowering on TPU
-    Pallas): Cephes atanf range reduction + degree-4 polynomial in x^2,
-    ~1-2 ulp in f32.  All branches computed, selected with where (finite
-    everywhere thanks to the guarded reciprocal)."""
+    """Branchless arctan: Cephes atanf range reduction + degree-4
+    polynomial in x^2, ~1-2 ulp in f32.  All branches computed, selected
+    with where (finite everywhere thanks to the guarded reciprocal).  The
+    Triton route lowers atan; the polynomial stays so that the kernels and
+    their XLA twins (which share this code) keep one set of numerics."""
     sign = jnp.sign(x)
     ax = jnp.abs(x)
     t3 = ax > 2.414213562373095        # tan(3*pi/8)
@@ -116,12 +120,12 @@ def _shape_fns(kind: str, cheb_off: int = CHEB_OFF_COMPACT):
     """Inlined (r2, r_deriv_over_r3) for each metric family.
 
     Returns f(params, l) -> (r2, dr_over_r3) where dr_over_r3 = r'(l)/r(l)^3,
-    the only combination the planar RHS needs.  params is the SMEM row.
+    the only combination the planar RHS needs.  params is the scalar row.
 
     ``kind='cheb{K}'`` is the USER-METRIC path (metrics/table.py): degree-K
     Chebyshev tables of the compactified shape remainders, appended to the
     row at slot ``cheb_off`` (each kernel family passes where its own
-    extras end) — Clenshaw evaluation, ~8 + 4K VPU ops per step.
+    extras end) — Clenshaw evaluation, ~8 + 4K flops per step.
     """
     if kind.startswith("cheb"):
         from curvis_tpu.metrics.table import poly_eval
@@ -157,16 +161,16 @@ def _shape_fns(kind: str, cheb_off: int = CHEB_OFF_COMPACT):
         def fns(pr, l):
             m, a, rho = pr[0, 2], pr[0, 3], pr[0, 4]
             # Lean DNEG shape, round-3 budgeted form: ONE divide, ONE log,
-            # one degree-6 poly (~30 VPU ops vs the round-2 ~43).  The old
-            # degree-9 ln1p poly paid ~10 VPU ops NEXT TO a hardware log
+            # one degree-6 poly (~30 flops vs the round-2 ~43).  The old
+            # degree-9 ln1p poly paid ~10 flops NEXT TO a hardware log
             # that costs one op-equivalent (NEXT.md latency measurements);
             # and the branch-split log collapses exactly —
             # (1+v^2)*max(x,1)^2 == 1+x^2 in both branches — so
             # L = log(1+x^2) directly (f32 abs err <= ~1e-7 in L ->
-            # ~1e-8*m in r).  atan keeps a poly (no Mosaic lowering),
+            # ~1e-8*m in r).  atan keeps a poly (shared with the XLA twin),
             # refit at degree 6: 1.2e-6 abs in f32 Horner — measured, and
             # ~3 decades under the p99 3e-3 rad deflection budget.
-            c = 2.0 / (jnp.pi * m)       # scalar; Mosaic hoists out of loop
+            c = 2.0 / (jnp.pi * m)       # scalar, loop-invariant
             u = jnp.abs(l)
             # inside-throat clamp replaces the outside-select: at x = 0,
             # G = atan = 0 gives r = rho, r' = 0 exactly (metrics.rs:461-487)
@@ -261,7 +265,7 @@ def _vol_param_slots(disk):
 
 
 def _metric_kind_and_params(metric: Metric, dt, escape_radius, dtype):
-    """(kind, (1, 10) SMEM param row):
+    """(kind, (1, 10) scalar row):
     [dt, R, p0, p1, p2, capture_radius, rtol, atol, dt_max, 0].
     Built with jnp so traced metric parameters stay traced (no recompiles
     when retuning dt / R / params under jit)."""
@@ -309,7 +313,7 @@ def _march_kernel(kind: str, max_steps: int, unroll: int,
     x += 0 * dx is exact for finite values, so frozen state is untouched
     without select chains.  The escape sign is accumulated as a float
     (sign += alive * ((l > R) - (l < -R))), which latches at +-1 on the first
-    crossing and zeroes `alive` from the next sub-step on.  ~13 VPU ops per
+    crossing and zeroes `alive` from the next sub-step on.  ~13 flops per
     ray-step vs ~25 for the select-based formulation.  ``max_steps`` must be
     a multiple of ``unroll`` (enforced by the wrapper) so the iteration cap
     is exact.
@@ -358,7 +362,7 @@ def _march_kernel(kind: str, max_steps: int, unroll: int,
     # reference escape semantics + capture) until the tile fully terminates.
     def cond(c):
         _, _, _, sign, _, it = c
-        return (it < max_steps) & jnp.any(sign == 0.0)
+        return (it < max_steps) & any_alive(sign)
 
     def body(c):
         l, psi, p_l, sign, steps, it = c
@@ -385,56 +389,15 @@ def _march_kernel(kind: str, max_steps: int, unroll: int,
     osteps_ref[:] = steps.astype(jnp.int32)
 
 
-@functools.partial(jax.jit, static_argnames=("kind", "max_steps", "tile_rows",
-                                             "unroll", "interpret"))
-def _march_flat_arrays(kind, params, l, psi, p_l, b, *, max_steps, tile_rows,
-                       unroll, interpret=False):
-    """l/psi/p_l/b are (n_rows, 128); grid tiles rows by ``tile_rows``."""
-    n_rows = l.shape[0]
-    grid = (n_rows // tile_rows,)
-    dtype = l.dtype
-
-    def row_spec():
-        return pl.BlockSpec((tile_rows, LANES), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-
-    kernel = functools.partial(_march_kernel, kind, max_steps, unroll)
-    out_shape = [
-        jax.ShapeDtypeStruct((n_rows, LANES), dtype),       # l
-        jax.ShapeDtypeStruct((n_rows, LANES), dtype),       # psi
-        jax.ShapeDtypeStruct((n_rows, LANES), dtype),       # p_l
-        jax.ShapeDtypeStruct((n_rows, LANES), jnp.int32),   # sign
-        jax.ShapeDtypeStruct((n_rows, LANES), jnp.int32),   # steps
-    ]
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, params.shape[1]), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            row_spec(), row_spec(), row_spec(), row_spec(),
-        ],
-        out_specs=[row_spec()] * 5,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(params, l, psi, p_l, b)
-
-
 def march_planar_pallas(metric: Metric, rays: PlanarRays, *, dt, max_steps,
-                        escape_radius, stepper="euler", tile_rows=64,
-                        unroll=None, sort=True,
-                        interpret=False) -> PlanarResult:
+                        escape_radius, stepper="euler") -> PlanarResult:
     """Pallas planar march with the same contract as march_planar_tiled."""
     if stepper != "euler":
         raise NotImplementedError("pallas march currently implements the "
                                   "(reference-parity) Euler stepper")
     kind, params = _metric_kind_and_params(metric, dt, escape_radius,
                                            rays.l.dtype)
-    if unroll is None:
-        # measured on the chip (1024^2 x4 bundle, tile_rows=64): heavy
-        # shapes want deeper unroll — DNEG 29.2 Mrays/s @16 vs 28.3 @8;
-        # Ellis prefers 8 (round-2 sweep, unroll 16/32 slightly worse)
-        unroll = 16 if kind == "interstellar" else 8
+    unroll = UNROLL
     # The kernel's masked phase gates only on sign, so the iteration bound
     # must hit max_steps exactly: shrink unroll to a divisor rather than
     # rounding the cap up (an overshoot would let a ray escape with sign +-1
@@ -443,42 +406,34 @@ def march_planar_pallas(metric: Metric, rays: PlanarRays, *, dt, max_steps,
     while max_steps % unroll:
         unroll //= 2
 
-    n = rays.l.reshape(-1).shape[0]
-    block = tile_rows * LANES
-    n_pad = -(-n // block) * block
+    shape = rays.l.shape
+    l, psi, p_l, b = (jnp.broadcast_to(a, shape).reshape(-1)
+                      for a in (rays.l, rays.psi, rays.p_l, rays.b))
+    outs = _march_call(kind, max_steps, unroll, params, l, psi, p_l, b)
+    l, psi, p_l, sign, steps = (a.reshape(shape) for a in outs)
+    return PlanarResult(l, psi, p_l, sign, steps)
 
-    def pad(a):
-        a = a.reshape(-1)
-        return jnp.concatenate([a, jnp.full((n_pad - n,), a[0], a.dtype)])
 
-    l, psi, p_l, b = (pad(rays.l), pad(rays.psi), pad(rays.p_l), pad(rays.b))
-    if sort:
-        key = jnp.where(p_l < 0, 100.0 + b, b)
-        order = jnp.argsort(key)
-        inv_order = jnp.argsort(order)
-        l, psi, p_l, b = (a[order] for a in (l, psi, p_l, b))
+# Euler steps per iteration of the block's step loop.  Chosen by the
+# sweeps of benchmarks/kernel_vs_twin.py on the H100 (CHANGES.md): it buys
+# the Euler march a few percent; the disk, volume and Kerr kernels, swept
+# the same way, run as fast with Triton's own loop, and take one step per
+# iteration.
+UNROLL = 8
 
-    shape2 = (n_pad // LANES, LANES)
-    outs = _march_flat_arrays(kind, params,
-                              l.reshape(shape2), psi.reshape(shape2),
-                              p_l.reshape(shape2), b.reshape(shape2),
-                              max_steps=max_steps, tile_rows=tile_rows,
-                              unroll=unroll, interpret=interpret)
-    l, psi, p_l, sign, steps = (a.reshape(-1) for a in outs)
-    if sort:
-        l, psi, p_l, sign, steps = (a[inv_order]
-                                    for a in (l, psi, p_l, sign, steps))
-    out_shape = rays.l.shape
-    return PlanarResult(l[:n].reshape(out_shape), psi[:n].reshape(out_shape),
-                        p_l[:n].reshape(out_shape),
-                        sign[:n].reshape(out_shape),
-                        steps[:n].reshape(out_shape))
+
+@functools.partial(jax.jit, static_argnums=(0, 1, 2))
+def _march_call(kind, max_steps, unroll, params, l, psi, p_l, b):
+    f, i32 = l.dtype, jnp.int32
+    return launch(functools.partial(_march_kernel, kind, max_steps, unroll),
+                  params, [l, psi, p_l, b], [f, f, f, i32, i32],
+                  name="planar_euler")
 
 
 # ---------------------------------------------------------------------------
 # Adaptive RK45 kernel (quality mode): Dormand-Prince 5(4), per-ray dt,
 # accept/reject, escape interpolation to |l| = R (integrate/rk45.py semantics,
-# VMEM-resident).
+# register-resident).
 # ---------------------------------------------------------------------------
 
 _DP_A = [
@@ -556,9 +511,7 @@ def _rk45_kernel(kind: str, max_steps: int, max_iters: int,
     extras0 = ()
     if track_disk or vol:
         zq0 = c1 * jnp.cos(psi) + c2 * jnp.sin(psi)
-        # hit/accumulator carries init with data-dependent zeros (l * 0.0)
-        # to pin a laid-out Mosaic layout (see the itersv note below)
-        extras0 = (zq0,) + tuple(l * 0.0 for _ in
+        extras0 = (zq0,) + tuple(jnp.zeros_like(l) for _ in
                                  range(6 if track_disk else 4))
         # disk: (zq, h1, h1p, h1s, h2, h2p, h2s);
         # vol:  (zq, tau, em_r, em_g, em_b)
@@ -569,7 +522,7 @@ def _rk45_kernel(kind: str, max_steps: int, max_iters: int,
     def cond(c):
         sign = c[4]
         it = c[-1]
-        return (it < max_iters) & jnp.any(sign == 0.0)
+        return (it < max_iters) & any_alive(sign)
 
     def body(c):
         l, psi, p_l, dt, sign, steps = c[:6]
@@ -742,13 +695,8 @@ def _rk45_kernel(kind: str, max_steps: int, max_iters: int,
         sign = jnp.where(capped, -128.0, sign)
         return (l, psi, p_l, dt, sign, steps) + ex + (itersv, it + 1)
 
-    # itersv init: l * 0.0 (not the splat `zero`) — Mosaic v5e infers a
-    # replicated layout for a splat-constant carry in THIS slot and then
-    # fails relayouting the laid-out yielded value onto it ("Invalid
-    # relayout ... replicated in destination"); a data-dependent zero pins
-    # the laid-out layout from the start.
     out = lax.while_loop(cond, body, (l, psi, p_l, dt, sign, steps)
-                         + extras0 + (l * 0.0, jnp.int32(0)))
+                         + extras0 + (jnp.zeros_like(l), jnp.int32(0)))
     l, psi, p_l, dt, sign, steps = out[:6]
     ex = out[6:-2]
     itersv = out[-2]
@@ -764,57 +712,24 @@ def _rk45_kernel(kind: str, max_steps: int, max_iters: int,
     out_refs[-1][:] = itersv.astype(jnp.int32)
 
 
-@functools.partial(jax.jit, static_argnames=("kind", "max_steps", "max_iters",
-                                             "track_disk", "vol", "blackbody",
-                                             "redshift", "doppler", "scatter",
-                                             "tile_rows", "interpret"))
-def _rk45_flat_arrays(kind, params, l, psi, p_l, b, c1=None, c2=None,
-                      nz=None, *, max_steps, max_iters, track_disk=False,
-                      vol=False, blackbody=False, redshift=False,
-                      doppler=False, scatter=False, tile_rows,
-                      interpret=False):
-    n_rows = l.shape[0]
-    grid = (n_rows // tile_rows,)
-    dtype = l.dtype
-
-    def row_spec():
-        return pl.BlockSpec((tile_rows, LANES), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-
+@functools.partial(jax.jit, static_argnums=tuple(range(10)))
+def _rk45_call(kind, max_steps, max_iters, track_disk, vol, blackbody,
+               redshift, doppler, scatter, n_out, params, *rays):
+    f, i32 = rays[0].dtype, jnp.int32
     kernel = functools.partial(_rk45_kernel, kind, max_steps, max_iters,
                                track_disk, vol, blackbody, redshift, doppler,
                                scatter)
-    f = jax.ShapeDtypeStruct((n_rows, LANES), dtype)
-    i32 = jax.ShapeDtypeStruct((n_rows, LANES), jnp.int32)
-    out_shape = [f, f, f, i32, i32]
-    ins = [params, l, psi, p_l, b]
-    if track_disk or vol:
-        ins += [c1, c2]
-        # h1,h1p,h1s,h2,h2p,h2s | tau,em_r,em_g,em_b
-        out_shape += [f] * (6 if track_disk else 4)
-    if vol:
-        ins += [nz]
-    out_shape += [i32]                # per-ray iteration count (last)
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, params.shape[1]), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ] + [row_spec()] * (len(ins) - 1),
-        out_specs=[row_spec()] * len(out_shape),
-        out_shape=out_shape,
-        interpret=interpret,
-    )(*ins)
+    return launch(kernel, params, list(rays),
+                  [f, f, f, i32, i32] + [f] * n_out + [i32],
+                  name="planar_rk45")
 
 
 def march_planar_rk45_pallas(metric: Metric, rays: PlanarRays, *,
                              escape_radius, max_steps=10_000, max_iters=None,
                              rtol=1e-5, atol=1e-7, dt0=0.05, dt_max=10.0,
-                             tile_rows=64, c1=None, c2=None, nz=None,
+                             c1=None, c2=None, nz=None,
                              disk=None, vol_disk=None, vol_row=None,
-                             scatter_block=None, interpret=False,
-                             return_iters=False):
+                             scatter_block=None, return_iters=False):
     """Pallas adaptive RK45 march (integrate/rk45.py semantics on-device).
 
     ``disk=(r_in, r_out)`` (+ per-ray plane coefficients ``c1, c2``)
@@ -854,35 +769,22 @@ def march_planar_rk45_pallas(metric: Metric, rays: PlanarRays, *,
          jnp.asarray([extra], params.dtype),
          params[:, CHEB_OFF_COMPACT:]], axis=1)
 
-    n = rays.l.reshape(-1).shape[0]
-    block = tile_rows * LANES
-    n_pad = -(-n // block) * block
-
-    def pad(a):
-        a = a.reshape(-1)
-        return jnp.concatenate([a, jnp.full((n_pad - n,), a[0], a.dtype)])
-
-    shape2 = (n_pad // LANES, LANES)
-
     def prep(a):
-        return pad(jnp.broadcast_to(a, rays.l.shape)).reshape(shape2)
+        return jnp.broadcast_to(a, rays.l.shape).reshape(-1)
 
-    arrs = dict(l=prep(rays.l), psi=prep(rays.psi), p_l=prep(rays.p_l),
-                b=prep(rays.b))
+    arrs = [prep(rays.l), prep(rays.psi), prep(rays.p_l), prep(rays.b)]
     if track_disk or vol:
-        arrs["c1"] = prep(c1)
-        arrs["c2"] = prep(c2)
+        arrs += [prep(c1), prep(c2)]
     if vol:
-        arrs["nz"] = prep(nz)
-    outs = _rk45_flat_arrays(
-        kind, params, *arrs.values(), max_steps=max_steps,
-        max_iters=4 * max_steps if max_iters is None else int(max_iters),
-        track_disk=track_disk, vol=vol,
-        blackbody=vol and vol_disk.color_mode == "blackbody",
-        redshift=vol and vol_disk.redshift, doppler=vol and vol_disk.doppler,
-        scatter=scatter_block is not None,
-        tile_rows=tile_rows, interpret=interpret)
-    outs = [a.reshape(-1)[:n].reshape(rays.l.shape) for a in outs]
+        arrs += [prep(nz)]
+    outs = _rk45_call(
+        kind, max_steps,
+        4 * max_steps if max_iters is None else int(max_iters),
+        track_disk, vol, vol and vol_disk.color_mode == "blackbody",
+        vol and vol_disk.redshift, vol and vol_disk.doppler,
+        scatter_block is not None,
+        6 if track_disk else 4 if vol else 0, params, *arrs)
+    outs = [a.reshape(rays.l.shape) for a in outs]
     res = PlanarResult(*outs[:5])
     ret = [res]
     if track_disk:
@@ -896,21 +798,14 @@ def march_planar_rk45_pallas(metric: Metric, rays: PlanarRays, *,
     return tuple(ret) if len(ret) > 1 else res
 
 
-def march_pallas(metric, x0, p0, *, dt, max_steps, escape_radius,
-                 stepper="euler"):
-    """4-state API shim — the pallas path is planar-only; callers use
-    march_planar_pallas via render_direct(method='planar')."""
-    raise NotImplementedError("use march_planar_pallas (planar reduction)")
-
-
 # ---------------------------------------------------------------------------
 # Disk-march kernel: planar march + equatorial-plane crossing capture
-# (render/disk.py semantics, VMEM-resident).  Tracks z = r(l)(c1 cos psi +
+# (render/disk.py semantics, register-resident).  Tracks z = r(l)(c1 cos psi +
 # c2 sin psi) with an incrementally rotated (cos psi, sin psi) pair and
 # records the first two crossing (radius, p_l) pairs.
 # ---------------------------------------------------------------------------
 
-def _disk_kernel(kind: str, max_steps: int, unroll: int,
+def _disk_kernel(kind: str, max_steps: int,
                  params_ref, l_ref, psi_ref, pl_ref, b_ref, c1_ref, c2_ref,
                  ol_ref, opsi_ref, opl_ref, osign_ref, osteps_ref,
                  oh1_ref, oh1p_ref, oh1s_ref, oh2_ref, oh2p_ref, oh2s_ref):
@@ -937,68 +832,62 @@ def _disk_kernel(kind: str, max_steps: int, unroll: int,
     # z / r(l): crossing detection only needs the sign, and c1 u + c2 v
     # avoids recomputing r(l) for z
     zq = c1 * u + c2 * v
-    # hit carries init with data-dependent zeros (l * 0.0, not the splat
-    # `zero`): Mosaic v5e can infer a replicated layout for splat-constant
-    # while carries and then fail relayouting the laid-out yielded value
-    # ("Invalid relayout ... replicated in destination") — same trap as the
-    # rk45 kernel's itersv carry, and interpret mode cannot see it.
-    h1 = l * 0.0
-    h1p = l * 0.0
-    h1s = l * 0.0
-    h2 = l * 0.0
-    h2p = l * 0.0
-    h2s = l * 0.0
+    h1 = jnp.zeros_like(l)
+    h1p = jnp.zeros_like(l)
+    h1s = jnp.zeros_like(l)
+    h2 = jnp.zeros_like(l)
+    h2p = jnp.zeros_like(l)
+    h2s = jnp.zeros_like(l)
 
     def cond(c):
         sign = c[7]
         it = c[14]
-        return (it < max_steps) & jnp.any(sign == 0.0)
+        return (it < max_steps) & any_alive(sign)
 
     def body(c):
         l, psi, p_l, u, v, zq, steps, sign, h1, h1p, h1s, h2, h2p, h2s, \
             it = c
-        for _ in range(unroll):
-            alive = jnp.where(sign == 0.0, one, zero)
-            dte = dt * alive
-            dl, dpsi, dpl = deriv(params_ref, l, p_l, b, b2)
-            l1 = l + dte * dl
-            pl1 = p_l + dte * dpl
-            du = dte * dpsi
-            u1 = u - v * du
-            v1 = v + u * du
-            zq1 = c1 * u1 + c2 * v1
-            # crossing: sign change of z (r > 0 so zq sign == z sign)
-            crossed = alive * jnp.where(zq * zq1 < 0.0, one, zero)
-            denom = jnp.abs(zq) + jnp.abs(zq1)
-            frac = jnp.abs(zq) / jnp.maximum(denom, 1e-30)
-            # SIGNED hit coordinate (sheet = sign; see _rk45_kernel)
-            lh = l + frac * (l1 - l)
-            r_hit = jnp.abs(lh)
-            in_disk = crossed * jnp.where(r_hit >= r_in, one, zero) \
-                * jnp.where(r_hit <= r_out, one, zero)
-            pl_hit = p_l + frac * (pl1 - p_l)
-            psi_hit = psi + frac * du
-            new1 = in_disk * jnp.where(h1 == 0.0, one, zero)
-            new2 = in_disk * jnp.where(h1 != 0.0, one, zero) \
-                * jnp.where(h2 == 0.0, one, zero)
-            h1 = h1 + new1 * lh
-            h1p = h1p + new1 * pl_hit
-            h1s = h1s + new1 * psi_hit
-            h2 = h2 + new2 * lh
-            h2p = h2p + new2 * pl_hit
-            h2s = h2s + new2 * psi_hit
-            l = l1
-            psi = psi + dte * dpsi
-            p_l = pl1
-            u = u1
-            v = v1
-            zq = zq1
-            sign = sign + alive * (jnp.where(l > R, one, zero)
-                                   - jnp.where(l < -R, one, zero)
-                                   + 2.0 * jnp.where(l < r_cap, one, zero))
-            steps = steps + alive
+        alive = jnp.where(sign == 0.0, one, zero)
+        dte = dt * alive
+        dl, dpsi, dpl = deriv(params_ref, l, p_l, b, b2)
+        l1 = l + dte * dl
+        pl1 = p_l + dte * dpl
+        du = dte * dpsi
+        u1 = u - v * du
+        v1 = v + u * du
+        zq1 = c1 * u1 + c2 * v1
+        # crossing: sign change of z (r > 0 so zq sign == z sign)
+        crossed = alive * jnp.where(zq * zq1 < 0.0, one, zero)
+        denom = jnp.abs(zq) + jnp.abs(zq1)
+        frac = jnp.abs(zq) / jnp.maximum(denom, 1e-30)
+        # SIGNED hit coordinate (sheet = sign; see _rk45_kernel)
+        lh = l + frac * (l1 - l)
+        r_hit = jnp.abs(lh)
+        in_disk = crossed * jnp.where(r_hit >= r_in, one, zero) \
+            * jnp.where(r_hit <= r_out, one, zero)
+        pl_hit = p_l + frac * (pl1 - p_l)
+        psi_hit = psi + frac * du
+        new1 = in_disk * jnp.where(h1 == 0.0, one, zero)
+        new2 = in_disk * jnp.where(h1 != 0.0, one, zero) \
+            * jnp.where(h2 == 0.0, one, zero)
+        h1 = h1 + new1 * lh
+        h1p = h1p + new1 * pl_hit
+        h1s = h1s + new1 * psi_hit
+        h2 = h2 + new2 * lh
+        h2p = h2p + new2 * pl_hit
+        h2s = h2s + new2 * psi_hit
+        l = l1
+        psi = psi + dte * dpsi
+        p_l = pl1
+        u = u1
+        v = v1
+        zq = zq1
+        sign = sign + alive * (jnp.where(l > R, one, zero)
+                               - jnp.where(l < -R, one, zero)
+                               + 2.0 * jnp.where(l < r_cap, one, zero))
+        steps = steps + alive
         return l, psi, p_l, u, v, zq, steps, sign, h1, h1p, h1s, h2, h2p, \
-            h2s, it + unroll
+            h2s, it + 1
 
     out = lax.while_loop(cond, body, (l, psi, p_l, u, v, zq, steps, sign,
                                       h1, h1p, h1s, h2, h2p, h2s,
@@ -1017,40 +906,17 @@ def _disk_kernel(kind: str, max_steps: int, unroll: int,
     oh2s_ref[:] = h2s
 
 
-@functools.partial(jax.jit, static_argnames=("kind", "max_steps", "tile_rows",
-                                             "unroll", "interpret"))
-def _disk_flat_arrays(kind, params, l, psi, p_l, b, c1, c2, *, max_steps,
-                      tile_rows, unroll, interpret=False):
-    n_rows = l.shape[0]
-    grid = (n_rows // tile_rows,)
-    dtype = l.dtype
-
-    def row_spec():
-        return pl.BlockSpec((tile_rows, LANES), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-
-    kernel = functools.partial(_disk_kernel, kind, max_steps, unroll)
-    f = jax.ShapeDtypeStruct((n_rows, LANES), dtype)
-    i = jax.ShapeDtypeStruct((n_rows, LANES), jnp.int32)
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, params.shape[1]), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ] + [row_spec()] * 6,
-        out_specs=[row_spec()] * 11,
-        out_shape=[f, f, f, i, i, f, f, f, f, f, f],
-        interpret=interpret,
-    )(params, l, psi, p_l, b, c1, c2)
+@functools.partial(jax.jit, static_argnums=(0, 1))
+def _disk_call(kind, max_steps, params, *rays):
+    f, i32 = rays[0].dtype, jnp.int32
+    return launch(functools.partial(_disk_kernel, kind, max_steps),
+                  params, list(rays), [f, f, f, i32, i32] + [f] * 6,
+                  name="planar_disk")
 
 
 def march_planar_disk_pallas(metric: Metric, rays: PlanarRays, c1, c2, *, dt,
-                             max_steps, escape_radius, r_inner, r_outer,
-                             tile_rows=32, unroll=8, interpret=False):
+                             max_steps, escape_radius, r_inner, r_outer):
     """Pallas counterpart of render/disk.march_planar_disk."""
-    while max_steps % unroll:        # exact step cap (see march_planar_pallas)
-        unroll //= 2
     kind, params = _metric_kind_and_params(metric, dt, escape_radius,
                                            rays.l.dtype)
     params = jnp.concatenate(
@@ -1058,20 +924,10 @@ def march_planar_disk_pallas(metric: Metric, rays: PlanarRays, c1, c2, *, dt,
          jnp.asarray([[r_inner, r_outer, 0.0, 0.0]], params.dtype),
          params[:, CHEB_OFF_COMPACT:]], axis=1)   # extras fill 6:10 exactly
 
-    n = rays.l.reshape(-1).shape[0]
-    block = tile_rows * LANES
-    n_pad = -(-n // block) * block
-
-    def pad(a):
-        a = a.reshape(-1)
-        return jnp.concatenate([a, jnp.full((n_pad - n,), a[0], a.dtype)])
-
-    arrs = [pad(a) for a in (rays.l, rays.psi, rays.p_l, rays.b, c1, c2)]
-    shape2 = (n_pad // LANES, LANES)
-    outs = _disk_flat_arrays(kind, params, *(a.reshape(shape2) for a in arrs),
-                             max_steps=max_steps, tile_rows=tile_rows,
-                             unroll=unroll, interpret=interpret)
-    outs = [a.reshape(-1)[:n].reshape(rays.l.shape) for a in outs]
+    arrs = [jnp.broadcast_to(a, rays.l.shape).reshape(-1)
+            for a in (rays.l, rays.psi, rays.p_l, rays.b, c1, c2)]
+    outs = _disk_call(kind, max_steps, params, *arrs)
+    outs = [a.reshape(rays.l.shape) for a in outs]
     l, psi, p_l, sign, steps, h1, h1p, h1s, h2, h2p, h2s = outs
     return (PlanarResult(l, psi, p_l, sign, steps),
             (h1, h1p, h1s), (h2, h2p, h2s))
@@ -1100,7 +956,7 @@ def _vol_emission(kind: str, blackbody: bool, redshift: bool, doppler: bool,
     """SoA per-step volumetric emission — (dtau, demr, demg, demb).
 
     Mirrors render/disk.py:step_emission exactly (same clips, same guards);
-    scalars come from the widened SMEM row (layout contract at the top of
+    scalars come from the widened scalar row (layout contract at the top of
     this module: the 8 _vol_param_slots ride at VOL_BLOCK_PLANAR, so a
     table metric's coefficient tail rides at CHEB_OFF_VOL — NOT the
     compact kernels' CHEB_OFF_COMPACT).
@@ -1212,7 +1068,6 @@ def _vol_emission(kind: str, blackbody: bool, redshift: bool, doppler: bool,
 
 def _disk_vol_kernel(kind: str, blackbody: bool, redshift: bool,
                      doppler: bool, scatter: bool, max_steps: int,
-                     unroll: int,
                      params_ref, l_ref, psi_ref, pl_ref, b_ref, c1_ref,
                      c2_ref, nz_ref, ol_ref, opsi_ref, opl_ref, osign_ref,
                      osteps_ref, otau_ref, oemr_ref, oemg_ref, oemb_ref):
@@ -1251,37 +1106,35 @@ def _disk_vol_kernel(kind: str, blackbody: bool, redshift: bool,
     def cond(c):
         sign = c[9]
         it = c[11]
-        return (it < max_steps) & jnp.any(sign == 0.0)
+        return (it < max_steps) & any_alive(sign)
 
     def body(c):
         l, psi, p_l, u, v, tau, emr, emg, emb, sign, steps, it = c
-        for _ in range(unroll):
-            alive = jnp.where(sign == 0.0, one, zero)
-            dte = dt * alive
-            dl, dpsi, dpl = deriv(params_ref, l, p_l, b, b2)
-            l = l + dte * dl
-            psi = psi + dte * dpsi
-            p_l = p_l + dte * dpl
-            du = dte * dpsi
-            u, v = u - v * du, v + u * du
-            zq = c1 * u + c2 * v
-            dtau, dr_, dg_, db_ = _vol_emission(
-                kind, blackbody, redshift, doppler, params_ref,
-                l, p_l, b, zq, tau, nz, cheb_off=cheb_off,
-                scatter_off=scatter_off)
-            emr = emr + dte * dr_
-            emg = emg + dte * dg_
-            emb = emb + dte * db_
-            tau = tau + dte * dtau
-            sign = sign + alive * (jnp.where(l > R, one, zero)
-                                   - jnp.where(l < -R, one, zero)
-                                   + 2.0 * jnp.where(l < r_cap, one, zero))
-            # tau_max freeze: OPAQUE_SIGN == CAPTURED == 2 (render/disk.py)
-            still = jnp.where(sign == 0.0, one, zero)
-            sign = sign + still * 2.0 * jnp.where(tau > tau_max, one, zero)
-            steps = steps + alive
-        return l, psi, p_l, u, v, tau, emr, emg, emb, sign, steps, \
-            it + unroll
+        alive = jnp.where(sign == 0.0, one, zero)
+        dte = dt * alive
+        dl, dpsi, dpl = deriv(params_ref, l, p_l, b, b2)
+        l = l + dte * dl
+        psi = psi + dte * dpsi
+        p_l = p_l + dte * dpl
+        du = dte * dpsi
+        u, v = u - v * du, v + u * du
+        zq = c1 * u + c2 * v
+        dtau, dr_, dg_, db_ = _vol_emission(
+            kind, blackbody, redshift, doppler, params_ref,
+            l, p_l, b, zq, tau, nz, cheb_off=cheb_off,
+            scatter_off=scatter_off)
+        emr = emr + dte * dr_
+        emg = emg + dte * dg_
+        emb = emb + dte * db_
+        tau = tau + dte * dtau
+        sign = sign + alive * (jnp.where(l > R, one, zero)
+                               - jnp.where(l < -R, one, zero)
+                               + 2.0 * jnp.where(l < r_cap, one, zero))
+        # tau_max freeze: OPAQUE_SIGN == CAPTURED == 2 (render/disk.py)
+        still = jnp.where(sign == 0.0, one, zero)
+        sign = sign + still * 2.0 * jnp.where(tau > tau_max, one, zero)
+        steps = steps + alive
+        return l, psi, p_l, u, v, tau, emr, emg, emb, sign, steps, it + 1
 
     out = lax.while_loop(cond, body, (l, psi, p_l, u, v, tau, emr, emg, emb,
                                       sign, steps, jnp.int32(0)))
@@ -1297,43 +1150,20 @@ def _disk_vol_kernel(kind: str, blackbody: bool, redshift: bool,
     oemb_ref[:] = emb
 
 
-@functools.partial(jax.jit, static_argnames=("kind", "blackbody", "redshift",
-                                             "doppler", "scatter",
-                                             "max_steps", "tile_rows",
-                                             "unroll", "interpret"))
-def _disk_vol_arrays(kind, blackbody, redshift, doppler, params, l, psi, p_l,
-                     b, c1, c2, nz, *, max_steps, tile_rows, unroll,
-                     scatter=False, interpret=False):
-    n_rows = l.shape[0]
-    grid = (n_rows // tile_rows,)
-    dtype = l.dtype
-
-    def row_spec():
-        return pl.BlockSpec((tile_rows, LANES), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-
+@functools.partial(jax.jit, static_argnums=tuple(range(6)))
+def _disk_vol_call(kind, blackbody, redshift, doppler, scatter, max_steps,
+                   params, *rays):
+    f, i32 = rays[0].dtype, jnp.int32
     kernel = functools.partial(_disk_vol_kernel, kind, blackbody, redshift,
-                               doppler, scatter, max_steps, unroll)
-    f = jax.ShapeDtypeStruct((n_rows, LANES), dtype)
-    i = jax.ShapeDtypeStruct((n_rows, LANES), jnp.int32)
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, params.shape[1]), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ] + [row_spec()] * 7,
-        out_specs=[row_spec()] * 9,
-        out_shape=[f, f, f, i, i, f, f, f, f],
-        interpret=interpret,
-    )(params, l, psi, p_l, b, c1, c2, nz)
+                               doppler, scatter, max_steps)
+    return launch(kernel, params, list(rays), [f, f, f, i32, i32] + [f] * 4,
+                  name="planar_disk_vol")
 
 
 def march_planar_disk_volumetric_pallas(metric: Metric, rays: PlanarRays,
                                         c1, c2, nz, *, dt, max_steps,
                                         escape_radius, disk, vol_row=None,
-                                        scatter_block=None, tile_rows=32,
-                                        unroll=4, interpret=False):
+                                        scatter_block=None):
     """Pallas counterpart of render/disk.march_planar_disk_volumetric.
 
     ``disk`` is a render.disk.DiskParams with volumetric=True; returns
@@ -1342,8 +1172,6 @@ def march_planar_disk_volumetric_pallas(metric: Metric, rays: PlanarRays,
     ``scatter_block``: traced (SCATTER_BLOCK,) starlight-scattering
     coefficients (module-top contract) enabling the in-gas source term.
     """
-    while max_steps % unroll:        # exact step cap (see march_planar_pallas)
-        unroll //= 2
     kind, params = _metric_kind_and_params(metric, dt, escape_radius,
                                            rays.l.dtype)
     extra = ([disk.r_inner, disk.r_outer] + _vol_param_slots(disk)
@@ -1356,37 +1184,25 @@ def march_planar_disk_volumetric_pallas(metric: Metric, rays: PlanarRays,
          jnp.asarray([extra], params.dtype),
          params[:, CHEB_OFF_COMPACT:]], axis=1)  # (1, CHEB_OFF_VOL) + tail
 
-    n = rays.l.reshape(-1).shape[0]
-    block = tile_rows * LANES
-    n_pad = -(-n // block) * block
-
-    def pad(a):
-        a = a.reshape(-1)
-        return jnp.concatenate([a, jnp.full((n_pad - n,), a[0], a.dtype)])
-
-    arrs = [pad(jnp.broadcast_to(a, rays.l.shape))
+    arrs = [jnp.broadcast_to(a, rays.l.shape).reshape(-1)
             for a in (rays.l, rays.psi, rays.p_l, rays.b, c1, c2, nz)]
-    shape2 = (n_pad // LANES, LANES)
-    outs = _disk_vol_arrays(kind, disk.color_mode == "blackbody",
-                            disk.redshift, disk.doppler, params,
-                            *(a.reshape(shape2) for a in arrs),
-                            max_steps=max_steps, tile_rows=tile_rows,
-                            unroll=unroll,
-                            scatter=scatter_block is not None,
-                            interpret=interpret)
-    outs = [a.reshape(-1)[:n].reshape(rays.l.shape) for a in outs]
+    outs = _disk_vol_call(kind, disk.color_mode == "blackbody",
+                          disk.redshift, disk.doppler,
+                          scatter_block is not None, max_steps, params,
+                          *arrs)
+    outs = [a.reshape(rays.l.shape) for a in outs]
     l, psi, p_l, sign, steps, tau, emr, emg, emb = outs
     return (PlanarResult(l, psi, p_l, sign, steps), tau, (emr, emg, emb))
 
 
 # ---------------------------------------------------------------------------
 # Kerr kernel: 5-state Boyer-Lindquist march (r, theta, phi, p_r, p_theta)
-# with per-ray conserved (E, L), RK4 in VMEM.  The RHS is the hand-inlined
+# with per-ray conserved (E, L), RK4 in registers.  The RHS is the hand-inlined
 # Hamiltonian flow of 2*Sigma*H = Delta p_r^2 + p_th^2
 #   + (L - a E sin^2)^2/sin^2 - ((r^2+a^2)E - a L)^2/Delta
 # including the off-shell W * d(1/2Sigma) term, so it is algebraically
 # identical to the autodiff marcher (physics/hamiltonian.py) — the ~50x win
-# is VMEM residency + no per-step HBM carry traffic, not a different flow.
+# is register residency + no per-step carry traffic, not a different flow.
 # Capture at r < r_cap (sign 2), escape at r > R (sign 1), per-step masked.
 # ---------------------------------------------------------------------------
 
@@ -1428,7 +1244,7 @@ def _kerr_vol_emission(blackbody: bool, beaming: bool, pr, r, th, b_ph, tau,
     Mirrors render/kerr.py:march_kerr_volumetric.step_emission (same clips
     and guards); the vertical direction cosine is zq = cos(theta) exactly,
     and the g-factor is the circular-orbit formula with rr^1.5 = rr sqrt(rr)
-    (no pow in Mosaic).  Scalars from the widened (1, 20) SMEM row (the 8
+    (no pow).  Scalars from the widened (1, 20) scalar row (the 8
     _vol_param_slots at VOL_BLOCK_KERR — layout contract, module top).
 
     ``scatter_off``: slot offset of the 27-scalar starlight scattering
@@ -1518,7 +1334,7 @@ def _kerr_vol_emission(blackbody: bool, beaming: bool, pr, r, th, b_ph, tau,
     return dtau, w, w, w
 
 
-def _kerr_kernel(max_steps: int, unroll: int, track_disk: bool, vol: bool,
+def _kerr_kernel(max_steps: int, track_disk: bool, vol: bool,
                  scatter: bool,
                  blackbody: bool, beaming: bool,
                  params_ref, r_ref, th_ref, ph_ref, pr_ref, pth_ref,
@@ -1544,16 +1360,12 @@ def _kerr_kernel(max_steps: int, unroll: int, track_disk: bool, vol: bool,
     sign = jnp.zeros_like(r)
     steps = jnp.zeros_like(r)
     ct_prev = jnp.cos(th)
-    # hit carries init with data-dependent zeros (r * 0.0): Mosaic v5e can
-    # infer a replicated layout for splat-constant while carries and fail
-    # the relayout ("Invalid relayout ... replicated in destination") —
-    # carry-count/order sensitive, so play safe (same trap as _rk45_kernel)
-    h1 = r * 0.0
-    h1f = r * 0.0
-    h1d = r * 0.0
-    h2 = r * 0.0
-    h2f = r * 0.0
-    h2d = r * 0.0
+    h1 = jnp.zeros_like(r)
+    h1f = jnp.zeros_like(r)
+    h1d = jnp.zeros_like(r)
+    h2 = jnp.zeros_like(r)
+    h2f = jnp.zeros_like(r)
+    h2d = jnp.zeros_like(r)
     if vol:
         tau_max = params_ref[0, VOL_BLOCK_KERR + VOL_SLOT["tau_max"]]
         b_ph = L / E                       # per-ray impact parameter L/E
@@ -1563,7 +1375,7 @@ def _kerr_kernel(max_steps: int, unroll: int, track_disk: bool, vol: bool,
         emb = jnp.zeros_like(r)
 
     def cond(c):
-        return (c[-1] < max_steps) & jnp.any(c[5] == 0.0)
+        return (c[-1] < max_steps) & any_alive(c[5])
 
     ax_u0 = params_ref[0, 8]
     far_r0 = params_ref[0, 9]          # far-field accel radius (1e30 = off)
@@ -1577,114 +1389,111 @@ def _kerr_kernel(max_steps: int, unroll: int, track_disk: bool, vol: bool,
         if vol:
             tau, emr, emg, emb = c[k0:k0 + 4]
         it = c[-1]
-        for _ in range(unroll):
-            # the steps < max_steps term makes the iteration cap exact even
-            # when max_steps is not a multiple of unroll (the while cond
-            # rounds up; this gate is what stops each ray on time)
-            alive = jnp.where((sign == 0.0) & (steps < max_steps), one, zero)
-            # polar-axis step control: the theta-equation stiffens as
-            # 1/sin^2 near theta = 0/pi; shrink dt up to 16x inside the
-            # sin^2(theta) < ax_u0 band (ax_u0 = 0 disables via the guarded
-            # ratio -> clip to 1).  Same rule in the XLA marchers.
-            s_ax = jnp.sin(th)
-            scale = jnp.clip((s_ax * s_ax + 1e-12)
-                             / jnp.maximum(ax_u0, 1e-12), 1.0 / 16.0, 1.0)
-            # far-field acceleration (ham.far_dt_scale — same algebra, so
-            # XLA/pallas parity holds; disabled encodes as r/1e30 -> 1)
-            fscale = jnp.clip(r / jnp.maximum(far_r0, 1e-12), 1.0, 8.0)
-            dte = dt * alive * scale * fscale
-            k1 = _kerr_rhs(M, a, q2, E, L, r, th, p_r, p_th)
-            k2 = _kerr_rhs(M, a, q2, E, L, r + 0.5 * dte * k1[0],
-                           th + 0.5 * dte * k1[1], p_r + 0.5 * dte * k1[3],
-                           p_th + 0.5 * dte * k1[4])
-            k3 = _kerr_rhs(M, a, q2, E, L, r + 0.5 * dte * k2[0],
-                           th + 0.5 * dte * k2[1], p_r + 0.5 * dte * k2[3],
-                           p_th + 0.5 * dte * k2[4])
-            k4 = _kerr_rhs(M, a, q2, E, L, r + dte * k3[0], th + dte * k3[1],
-                           p_r + dte * k3[3], p_th + dte * k3[4])
-            w = dte * (1.0 / 6.0)
-            live = alive > 0.5
-            r1 = r + w * (k1[0] + 2.0 * (k2[0] + k3[0]) + k4[0])
-            th1 = th + w * (k1[1] + 2.0 * (k2[1] + k3[1]) + k4[1])
-            ph1 = ph + w * (k1[2] + 2.0 * (k2[2] + k3[2]) + k4[2])
-            pr1 = p_r + w * (k1[3] + 2.0 * (k2[3] + k3[3]) + k4[3])
-            pth1 = p_th + w * (k1[4] + 2.0 * (k2[4] + k3[4]) + k4[4])
-            if track_disk:
-                ct = jnp.cos(th1)
-                crossed = alive * jnp.where(ct_prev * ct < 0.0, one, zero)
-                den = jnp.abs(ct_prev) + jnp.abs(ct)
-                frac = jnp.abs(ct_prev) / jnp.maximum(den, 1e-30)
-                r_hit = r + frac * (r1 - r)
-                # BL azimuth at the crossing + approach side (sign of
-                # cos theta just before) — the Kerr starlight-map lookup
-                # coordinates (render/starlight.py contract in BL form)
-                ph_hit = ph + frac * (ph1 - ph)
-                side = jnp.where(ct_prev > 0.0, one, -one)
-                in_disk = crossed * jnp.where(r_hit >= r_in, one, zero) \
-                    * jnp.where(r_hit <= r_out, one, zero)
-                new1 = in_disk * jnp.where(h1 == 0.0, one, zero)
-                new2 = in_disk * jnp.where(h1 != 0.0, one, zero) \
-                    * jnp.where(h2 == 0.0, one, zero)
-                # select, not h += new*r_hit: a NaN r_hit (blown-up ray,
-                # new = 0) would otherwise poison h via 0 * NaN
-                h1 = jnp.where(new1 > 0.5, r_hit, h1)
-                h1f = jnp.where(new1 > 0.5, ph_hit, h1f)
-                h1d = jnp.where(new1 > 0.5, side, h1d)
-                h2 = jnp.where(new2 > 0.5, r_hit, h2)
-                h2f = jnp.where(new2 > 0.5, ph_hit, h2f)
-                h2d = jnp.where(new2 > 0.5, side, h2d)
-                ct_prev = jnp.where(live, ct, ct_prev)
-            # select-gated writeback, not unconditional assignment: a frozen
-            # ray (dte = 0) whose state sits where _kerr_rhs overflows
-            # (Delta underflowing near the horizon) would otherwise compute
-            # 0 * inf = NaN and overwrite its frozen exit state — the XLA
-            # marchers where-mask the state, so this keeps backend
-            # exit-state parity for captured rays (ADVICE round-2).
-            r = jnp.where(live, r1, r)
-            th = jnp.where(live, th1, th)
-            ph = jnp.where(live, ph1, ph)
-            p_r = jnp.where(live, pr1, p_r)
-            p_th = jnp.where(live, pth1, p_th)
-            # blowup guard: horizon-skimming / polar-axis rays can go
-            # inf/NaN in f32 — freeze them with sign 3 (rendered black) so
-            # they stop burning steps; NaN compares false to everything, so
-            # `not (|r| <= BIG)` catches both inf and NaN.  The XLA marchers
-            # use the identical predicate (render/kerr.py, hamiltonian.py).
-            # full-state blowup check: a ray can escape with finite r but
-            # NaN theta/phi/momenta (axis 1/sin^2 spikes), which would leak
-            # NaN into the readout; the abs-sum catches NaN and inf in any
-            # component (NaN compares false; overflowing sum is bad anyway)
-            m_chk = (jnp.abs(r) + jnp.abs(th) + jnp.abs(ph)
-                     + jnp.abs(p_r) + jnp.abs(p_th))
-            ok = jnp.where(m_chk <= 1e8, one, zero)
-            if vol:
-                # emission at the post-step state, select-gated on the
-                # finiteness check (0 * NaN = NaN: a multiplicative mask
-                # cannot stop a blown-up state from poisoning tau/em)
-                dtau, dr_, dg_, db_ = _kerr_vol_emission(
-                    blackbody, beaming, params_ref, r, th, b_ph, tau,
-                    scatter_off=KERR_SCATTER_OFF if scatter else None)
-                gate = (alive * ok) > 0.5
-                emr = emr + jnp.where(gate, dte * dr_, zero)
-                emg = emg + jnp.where(gate, dte * dg_, zero)
-                emb = emb + jnp.where(gate, dte * db_, zero)
-                tau = tau + jnp.where(gate, dte * dtau, zero)
-            sign = sign + alive * (ok * (jnp.where(r > R, one, zero)
-                                         + 2.0 * jnp.where(r < r_cap, one,
-                                                           zero))
-                                   + 3.0 * (one - ok))
-            if vol:
-                # tau_max freeze: OPAQUE == CAPTURED == 2 (render/disk.py)
-                still = jnp.where(sign == 0.0, one, zero)
-                sign = sign + still * 2.0 * jnp.where(tau > tau_max, one,
-                                                      zero)
-            steps = steps + alive
+        # the steps < max_steps term stops each ray exactly at the cap
+        alive = jnp.where((sign == 0.0) & (steps < max_steps), one, zero)
+        # polar-axis step control: the theta-equation stiffens as
+        # 1/sin^2 near theta = 0/pi; shrink dt up to 16x inside the
+        # sin^2(theta) < ax_u0 band (ax_u0 = 0 disables via the guarded
+        # ratio -> clip to 1).  Same rule in the XLA marchers.
+        s_ax = jnp.sin(th)
+        scale = jnp.clip((s_ax * s_ax + 1e-12)
+                         / jnp.maximum(ax_u0, 1e-12), 1.0 / 16.0, 1.0)
+        # far-field acceleration (ham.far_dt_scale — same algebra, so
+        # XLA/pallas parity holds; disabled encodes as r/1e30 -> 1)
+        fscale = jnp.clip(r / jnp.maximum(far_r0, 1e-12), 1.0, 8.0)
+        dte = dt * alive * scale * fscale
+        k1 = _kerr_rhs(M, a, q2, E, L, r, th, p_r, p_th)
+        k2 = _kerr_rhs(M, a, q2, E, L, r + 0.5 * dte * k1[0],
+                       th + 0.5 * dte * k1[1], p_r + 0.5 * dte * k1[3],
+                       p_th + 0.5 * dte * k1[4])
+        k3 = _kerr_rhs(M, a, q2, E, L, r + 0.5 * dte * k2[0],
+                       th + 0.5 * dte * k2[1], p_r + 0.5 * dte * k2[3],
+                       p_th + 0.5 * dte * k2[4])
+        k4 = _kerr_rhs(M, a, q2, E, L, r + dte * k3[0], th + dte * k3[1],
+                       p_r + dte * k3[3], p_th + dte * k3[4])
+        w = dte * (1.0 / 6.0)
+        live = alive > 0.5
+        r1 = r + w * (k1[0] + 2.0 * (k2[0] + k3[0]) + k4[0])
+        th1 = th + w * (k1[1] + 2.0 * (k2[1] + k3[1]) + k4[1])
+        ph1 = ph + w * (k1[2] + 2.0 * (k2[2] + k3[2]) + k4[2])
+        pr1 = p_r + w * (k1[3] + 2.0 * (k2[3] + k3[3]) + k4[3])
+        pth1 = p_th + w * (k1[4] + 2.0 * (k2[4] + k3[4]) + k4[4])
+        if track_disk:
+            ct = jnp.cos(th1)
+            crossed = alive * jnp.where(ct_prev * ct < 0.0, one, zero)
+            den = jnp.abs(ct_prev) + jnp.abs(ct)
+            frac = jnp.abs(ct_prev) / jnp.maximum(den, 1e-30)
+            r_hit = r + frac * (r1 - r)
+            # BL azimuth at the crossing + approach side (sign of
+            # cos theta just before) — the Kerr starlight-map lookup
+            # coordinates (render/starlight.py contract in BL form)
+            ph_hit = ph + frac * (ph1 - ph)
+            side = jnp.where(ct_prev > 0.0, one, -one)
+            in_disk = crossed * jnp.where(r_hit >= r_in, one, zero) \
+                * jnp.where(r_hit <= r_out, one, zero)
+            new1 = in_disk * jnp.where(h1 == 0.0, one, zero)
+            new2 = in_disk * jnp.where(h1 != 0.0, one, zero) \
+                * jnp.where(h2 == 0.0, one, zero)
+            # select, not h += new*r_hit: a NaN r_hit (blown-up ray,
+            # new = 0) would otherwise poison h via 0 * NaN
+            h1 = jnp.where(new1 > 0.5, r_hit, h1)
+            h1f = jnp.where(new1 > 0.5, ph_hit, h1f)
+            h1d = jnp.where(new1 > 0.5, side, h1d)
+            h2 = jnp.where(new2 > 0.5, r_hit, h2)
+            h2f = jnp.where(new2 > 0.5, ph_hit, h2f)
+            h2d = jnp.where(new2 > 0.5, side, h2d)
+            ct_prev = jnp.where(live, ct, ct_prev)
+        # select-gated writeback, not unconditional assignment: a frozen
+        # ray (dte = 0) whose state sits where _kerr_rhs overflows
+        # (Delta underflowing near the horizon) would otherwise compute
+        # 0 * inf = NaN and overwrite its frozen exit state — the XLA
+        # marchers where-mask the state, so this keeps backend
+        # exit-state parity for captured rays (ADVICE round-2).
+        r = jnp.where(live, r1, r)
+        th = jnp.where(live, th1, th)
+        ph = jnp.where(live, ph1, ph)
+        p_r = jnp.where(live, pr1, p_r)
+        p_th = jnp.where(live, pth1, p_th)
+        # blowup guard: horizon-skimming / polar-axis rays can go
+        # inf/NaN in f32 — freeze them with sign 3 (rendered black) so
+        # they stop burning steps; NaN compares false to everything, so
+        # `not (|r| <= BIG)` catches both inf and NaN.  The XLA marchers
+        # use the identical predicate (render/kerr.py, hamiltonian.py).
+        # full-state blowup check: a ray can escape with finite r but
+        # NaN theta/phi/momenta (axis 1/sin^2 spikes), which would leak
+        # NaN into the readout; the abs-sum catches NaN and inf in any
+        # component (NaN compares false; overflowing sum is bad anyway)
+        m_chk = (jnp.abs(r) + jnp.abs(th) + jnp.abs(ph)
+                 + jnp.abs(p_r) + jnp.abs(p_th))
+        ok = jnp.where(m_chk <= 1e8, one, zero)
+        if vol:
+            # emission at the post-step state, select-gated on the
+            # finiteness check (0 * NaN = NaN: a multiplicative mask
+            # cannot stop a blown-up state from poisoning tau/em)
+            dtau, dr_, dg_, db_ = _kerr_vol_emission(
+                blackbody, beaming, params_ref, r, th, b_ph, tau,
+                scatter_off=KERR_SCATTER_OFF if scatter else None)
+            gate = (alive * ok) > 0.5
+            emr = emr + jnp.where(gate, dte * dr_, zero)
+            emg = emg + jnp.where(gate, dte * dg_, zero)
+            emb = emb + jnp.where(gate, dte * db_, zero)
+            tau = tau + jnp.where(gate, dte * dtau, zero)
+        sign = sign + alive * (ok * (jnp.where(r > R, one, zero)
+                                     + 2.0 * jnp.where(r < r_cap, one,
+                                                       zero))
+                               + 3.0 * (one - ok))
+        if vol:
+            # tau_max freeze: OPAQUE == CAPTURED == 2 (render/disk.py)
+            still = jnp.where(sign == 0.0, one, zero)
+            sign = sign + still * 2.0 * jnp.where(tau > tau_max, one,
+                                                  zero)
+        steps = steps + alive
         ret = (r, th, ph, p_r, p_th, sign, steps, ct_prev)
         if track_disk:
             ret = ret + (h1, h1f, h1d, h2, h2f, h2d)
         if vol:
             ret = ret + (tau, emr, emg, emb)
-        return ret + (it + unroll,)
+        return ret + (it + 1,)
 
     carry0 = (r, th, ph, p_r, p_th, sign, steps, ct_prev)
     if track_disk:
@@ -1711,59 +1520,30 @@ def _kerr_kernel(max_steps: int, unroll: int, track_disk: bool, vol: bool,
         out_refs[10][:] = emb
 
 
-@functools.partial(jax.jit, static_argnames=("max_steps", "tile_rows",
-                                             "unroll", "track_disk", "vol",
-                                             "scatter",
-                                             "blackbody", "beaming",
-                                             "interpret"))
-def _kerr_flat_arrays(params, r, th, ph, p_r, p_th, E, L, *, max_steps,
-                      tile_rows, unroll, track_disk, vol=False,
-                      scatter=False,
-                      blackbody=False, beaming=False, interpret=False):
-    n_rows = r.shape[0]
-    grid = (n_rows // tile_rows,)
-    dtype = r.dtype
-
-    def row_spec():
-        return pl.BlockSpec((tile_rows, LANES), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-
-    kernel = functools.partial(_kerr_kernel, max_steps, unroll, track_disk,
-                               vol, scatter, blackbody, beaming)
-    f = jax.ShapeDtypeStruct((n_rows, LANES), dtype)
-    i32 = jax.ShapeDtypeStruct((n_rows, LANES), jnp.int32)
-    out_shape = [f, f, f, f, f, i32, i32]
+def _kerr_outs(dtype, track_disk, vol):
+    f, i32 = dtype, jnp.int32
+    outs = [f, f, f, f, f, i32, i32]
     if track_disk:
-        out_shape += [f] * 6                 # (r, phi, side) x two hits
+        outs += [f] * 6                      # (r, phi, side) x two hits
     if vol:
-        out_shape += [f, f, f, f]            # tau, em_r, em_g, em_b
-    p_w = params.shape[1]
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, p_w), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ] + [row_spec()] * 7,
-        out_specs=[row_spec()] * len(out_shape),
-        out_shape=out_shape,
-        interpret=interpret,
-    )(params, r, th, ph, p_r, p_th, E, L)
+        outs += [f] * 4                      # tau, em_r, em_g, em_b
+    return outs
+
+
+@functools.partial(jax.jit, static_argnums=tuple(range(6)))
+def _kerr_call(max_steps, track_disk, vol, scatter, blackbody, beaming,
+               params, *rays):
+    kernel = functools.partial(_kerr_kernel, max_steps, track_disk,
+                               vol, scatter, blackbody, beaming)
+    return launch(kernel, params, list(rays),
+                  _kerr_outs(rays[0].dtype, track_disk, vol),
+                  name="kerr_rk4")
 
 
 def march_kerr_pallas(metric, x0, p0, *, dt, max_steps, escape_radius,
                       capture_radius=None, disk=None, vol_disk=None,
-                      vol_row=None, scatter_block=None, tile_rows=32,
-                      unroll=8, interpret=False,
-                      axis_u0=0.01, far_r0=None):
-    # NB unroll=1 trips a Mosaic relayout bug on v5e ("Non-singleton logical
-    # dimension is replicated in destination but not in source") in the
-    # while-loop carry; unroll=2 compiles fine — so unroll is clamped to
-    # >= 2 and the step cap is made exact by the per-ray steps < max_steps
-    # gate instead of shrinking unroll to a divisor (which would hit
-    # unroll=1 for any odd max_steps; ADVICE round-2).  Defaults from the
-    # measured v5e sweep (512x288 shadow, 32k steps): 32/8 = 58.8 ms vs
-    # 64.6 ms for the round-2 16/2 defaults; 64-row tiles regress (~66 ms).
+                      vol_row=None, scatter_block=None, axis_u0=0.01,
+                      far_r0=None):
     """Pallas Kerr march with the autodiff marcher's contract.
 
     ``x0`` (N, 4) contravariant BL position, ``p0`` (N, 4) covariant
@@ -1778,7 +1558,6 @@ def march_kerr_pallas(metric, x0, p0, *, dt, max_steps, escape_radius,
     (render/kerr.py:march_kerr_volumetric semantics; extra = (tau,
     (em_r, em_g, em_b))).
     """
-    unroll = max(2, unroll)          # Mosaic relayout bug at unroll=1 (NB)
     dtype = x0.dtype
     if capture_radius is None:
         capture_radius = metric.capture_radius
@@ -1797,7 +1576,7 @@ def march_kerr_pallas(metric, x0, p0, *, dt, max_steps, escape_radius,
         far_r0 = 1e30                    # disabled: r/1e30 clips to 1 exact
     if vol and vol_row is not None:
         # adjoint path: (r_in, r_out, 8 _vol_param_slots) supplied as one
-        # traced (10,) vector so the forward SMEM row and the backward
+        # traced (10,) vector so the forward scalar row and the backward
         # replay consume bit-identical (possibly differentiated) values
         r_in, r_out = vol_row[0], vol_row[1]
     vals = [dt, escape_radius, metric.m, metric.a, q * q, capture_radius,
@@ -1815,26 +1594,13 @@ def march_kerr_pallas(metric, x0, p0, *, dt, max_steps, escape_radius,
     params = jnp.stack([jnp.asarray(v, dtype) for v in vals]
                        ).reshape(1, width)
 
-    n = x0.shape[0]
-    block = tile_rows * LANES
-    n_pad = -(-n // block) * block
-
-    def pad(a):
-        a = a.reshape(-1)
-        return jnp.concatenate([a, jnp.full((n_pad - n,), a[0], a.dtype)])
-
-    arrs = [pad(v) for v in (x0[:, 1], x0[:, 2], x0[:, 3],
-                             p0[:, 1], p0[:, 2], -p0[:, 0], p0[:, 3])]
-    shape2 = (n_pad // LANES, LANES)
-    outs = _kerr_flat_arrays(
-        params, *(a.reshape(shape2) for a in arrs),
-        max_steps=max_steps, tile_rows=tile_rows, unroll=unroll,
-        track_disk=disk is not None and not vol, vol=vol,
-        scatter=vol and scatter_block is not None,
-        blackbody=vol and vol_disk.color_mode == "blackbody",
-        beaming=vol and (vol_disk.redshift or vol_disk.doppler),
-        interpret=interpret)
-    outs = [a.reshape(-1)[:n] for a in outs]
+    outs = _kerr_call(
+        max_steps, disk is not None and not vol, vol,
+        vol and scatter_block is not None,
+        vol and vol_disk.color_mode == "blackbody",
+        vol and (vol_disk.redshift or vol_disk.doppler), params,
+        x0[:, 1], x0[:, 2], x0[:, 3], p0[:, 1], p0[:, 2], -p0[:, 0],
+        p0[:, 3])
     r, th, ph, p_r, p_th, sign, steps = outs[:7]
     zero = jnp.zeros_like(r)
     x = jnp.stack([zero, r, th, ph], axis=-1)
@@ -1858,7 +1624,7 @@ def march_kerr_pallas(metric, x0, p0, *, dt, max_steps, escape_radius,
 # construction; same escape/capture/blowup sentinels as _kerr_kernel.
 # ---------------------------------------------------------------------------
 
-def _kerr_rk45_kernel(max_steps: int, max_iters: int, unroll: int,
+def _kerr_rk45_kernel(max_steps: int, max_iters: int,
                       track_disk: bool, vol: bool, scatter: bool,
                       blackbody: bool, beaming: bool,
                       params_ref, r_ref, th_ref, ph_ref, pr_ref, pth_ref,
@@ -1872,7 +1638,7 @@ def _kerr_rk45_kernel(max_steps: int, max_iters: int, unroll: int,
     r_out = params_ref[0, 7]
     rtol = params_ref[0, 8]
     atol = params_ref[0, 9]
-    # vol widens the SMEM row to the fixed kernel's emission layout (the 8
+    # vol widens the scalar row to the fixed kernel's emission layout (the 8
     # _vol_param_slots at VOL_BLOCK_KERR), pushing the controller bounds to
     # KERR_RK45_BOUNDS[True] (+1); non-vol keeps the compact 12-slot row
     dt_max = params_ref[0, KERR_RK45_BOUNDS[vol]]
@@ -1892,13 +1658,12 @@ def _kerr_rk45_kernel(max_steps: int, max_iters: int, unroll: int,
     itersv = jnp.zeros_like(r)         # per-ray lock-step iteration count
     dt = jnp.full_like(r, 1.0) * params_ref[0, 0]
     ct_prev = jnp.cos(th)
-    # data-dependent zero inits (Mosaic relayout trap, see _kerr_kernel)
-    h1 = r * 0.0
-    h1f = r * 0.0
-    h1d = r * 0.0
-    h2 = r * 0.0
-    h2f = r * 0.0
-    h2d = r * 0.0
+    h1 = jnp.zeros_like(r)
+    h1f = jnp.zeros_like(r)
+    h1d = jnp.zeros_like(r)
+    h2 = jnp.zeros_like(r)
+    h2f = jnp.zeros_like(r)
+    h2d = jnp.zeros_like(r)
     if vol:
         tau_max = params_ref[0, VOL_BLOCK_KERR + VOL_SLOT["tau_max"]]
         b_ph = L / E                       # per-ray impact parameter L/E
@@ -1908,7 +1673,7 @@ def _kerr_rk45_kernel(max_steps: int, max_iters: int, unroll: int,
         emb = jnp.zeros_like(r)
 
     def cond(c):
-        return (c[-1] < max_iters) & jnp.any(c[6] == 0.0)
+        return (c[-1] < max_iters) & any_alive(c[6])
 
     def body(c):
         r, th, ph, p_r, p_th, dt, sign, steps, ct_prev = c[:9]
@@ -1920,189 +1685,188 @@ def _kerr_rk45_kernel(max_steps: int, max_iters: int, unroll: int,
             tau, emr, emg, emb = c[k0:k0 + 4]
         itersv = c[-2]
         it = c[-1]
-        for _ in range(unroll):
-            alive = sign == 0.0
-            # counts accepted AND rejected iterations while live — the
-            # checkpointed-recompute adjoint replays exactly this many
-            # iterations per ray (integrate/rk45_adjoint.py)
-            itersv = itersv + jnp.where(alive, one, zero)
-            ks = []
-            for i in range(7):
-                ri, ti, pri, pti = r, th, p_r, p_th
-                for j, aa in enumerate(_DP_A[i]):
-                    ri = ri + dt * aa * ks[j][0]
-                    ti = ti + dt * aa * ks[j][1]
-                    pri = pri + dt * aa * ks[j][3]
-                    pti = pti + dt * aa * ks[j][4]
-                ks.append(_kerr_rhs(M, a, q2, E, L, ri, ti, pri, pti))
+        alive = sign == 0.0
+        # counts accepted AND rejected iterations while live — the
+        # checkpointed-recompute adjoint replays exactly this many
+        # iterations per ray (integrate/rk45_adjoint.py)
+        itersv = itersv + jnp.where(alive, one, zero)
+        ks = []
+        for i in range(7):
+            ri, ti, pri, pti = r, th, p_r, p_th
+            for j, aa in enumerate(_DP_A[i]):
+                ri = ri + dt * aa * ks[j][0]
+                ti = ti + dt * aa * ks[j][1]
+                pri = pri + dt * aa * ks[j][3]
+                pti = pti + dt * aa * ks[j][4]
+            ks.append(_kerr_rhs(M, a, q2, E, L, ri, ti, pri, pti))
 
-            def comb(w, comp):
-                acc = zero
-                for wi, k in zip(w, ks):
-                    if wi != 0.0:
-                        acc = acc + wi * k[comp]
-                return acc
+        def comb(w, comp):
+            acc = zero
+            for wi, k in zip(w, ks):
+                if wi != 0.0:
+                    acc = acc + wi * k[comp]
+            return acc
 
-            d5 = [comb(_DP_B5, i) for i in range(5)]
-            e = [d5[i] - comb(_DP_B4, i) for i in (0, 1, 3, 4)]
-            r1 = r + dt * d5[0]
-            th1 = th + dt * d5[1]
-            ph1 = ph + dt * d5[2]
-            pr1 = p_r + dt * d5[3]
-            pth1 = p_th + dt * d5[4]
+        d5 = [comb(_DP_B5, i) for i in range(5)]
+        e = [d5[i] - comb(_DP_B4, i) for i in (0, 1, 3, 4)]
+        r1 = r + dt * d5[0]
+        th1 = th + dt * d5[1]
+        ph1 = ph + dt * d5[2]
+        pr1 = p_r + dt * d5[3]
+        pth1 = p_th + dt * d5[4]
 
-            def ec(ei, y0, y1):
-                return jnp.abs(dt * ei) / (atol + rtol * jnp.maximum(
-                    jnp.abs(y0), jnp.abs(y1)))
+        def ec(ei, y0, y1):
+            return jnp.abs(dt * ei) / (atol + rtol * jnp.maximum(
+                jnp.abs(y0), jnp.abs(y1)))
 
-            err = jnp.maximum(
-                jnp.maximum(ec(e[0], r, r1), ec(e[1], th, th1)),
-                jnp.maximum(ec(e[2], p_r, pr1), ec(e[3], p_th, pth1)))
-            accept = alive & (err <= 1.0)
-            # boundary-stepping at escape (same rule as the XLA twin): a
-            # grossly overshooting trial is REJECTED and retried with dt
-            # scaled to land just past R, keeping full DP5 accuracy on the
-            # final step instead of reading the direction several M out.
-            # A trial landing within R*1e-3 PAST R is never "gross" and is
-            # accepted whatever frac says: once f32 rounding parks r exactly
-            # ON R, frac == 0 for every later escaping trial (including the
-            # dt_min retry, which lands at R + ~1e-5), and a frac-only rule
-            # would over-reject forever — one such ray spins its whole tile
-            # to max_iters (~27 ms/ray measured on v5e at 512x288).
-            esc_i = accept & (r1 > R)
-            den = r1 - r
-            den = jnp.where(jnp.abs(den) < 1e-30, one, den)
-            frac = (R - r) / den
-            over = esc_i & (frac < 0.9) & (r1 > R * (1.0 + 1e-3))
-            accept = accept & ~over
-            esc_i = esc_i & ~over
+        err = jnp.maximum(
+            jnp.maximum(ec(e[0], r, r1), ec(e[1], th, th1)),
+            jnp.maximum(ec(e[2], p_r, pr1), ec(e[3], p_th, pth1)))
+        accept = alive & (err <= 1.0)
+        # boundary-stepping at escape (same rule as the XLA twin): a
+        # grossly overshooting trial is REJECTED and retried with dt
+        # scaled to land just past R, keeping full DP5 accuracy on the
+        # final step instead of reading the direction several M out.
+        # A trial landing within R*1e-3 PAST R is never "gross" and is
+        # accepted whatever frac says: once f32 rounding parks r exactly
+        # ON R, frac == 0 for every later escaping trial (including the
+        # dt_min retry, which lands at R + ~1e-5), and a frac-only rule
+        # would over-reject forever — one such ray spins its whole tile
+        # to max_iters.
+        esc_i = accept & (r1 > R)
+        den = r1 - r
+        den = jnp.where(jnp.abs(den) < 1e-30, one, den)
+        frac = (R - r) / den
+        over = esc_i & (frac < 0.9) & (r1 > R * (1.0 + 1e-3))
+        accept = accept & ~over
+        esc_i = esc_i & ~over
 
-            if track_disk:
-                # NB: local names must not shadow the boundary-stepping
-                # (den, frac) above — dt_b below still reads them
-                ct = jnp.cos(th1)
-                crossed = jnp.where(accept & (ct_prev * ct < 0.0), one, zero)
-                cden = jnp.abs(ct_prev) + jnp.abs(ct)
-                cfrac = jnp.abs(ct_prev) / jnp.maximum(cden, 1e-30)
-                r_hit = r + cfrac * (r1 - r)
-                ph_hit = ph + cfrac * (ph1 - ph)
-                side = jnp.where(ct_prev > 0.0, one, -one)
-                in_disk = crossed * jnp.where(r_hit >= r_in, one, zero) \
-                    * jnp.where(r_hit <= r_out, one, zero)
-                new1 = in_disk * jnp.where(h1 == 0.0, one, zero)
-                new2 = in_disk * jnp.where(h1 != 0.0, one, zero) \
-                    * jnp.where(h2 == 0.0, one, zero)
-                h1 = jnp.where(new1 > 0.5, r_hit, h1)
-                h1f = jnp.where(new1 > 0.5, ph_hit, h1f)
-                h1d = jnp.where(new1 > 0.5, side, h1d)
-                h2 = jnp.where(new2 > 0.5, r_hit, h2)
-                h2f = jnp.where(new2 > 0.5, ph_hit, h2f)
-                h2d = jnp.where(new2 > 0.5, side, h2d)
-                ct_prev = jnp.where(accept, ct, ct_prev)
+        if track_disk:
+            # NB: local names must not shadow the boundary-stepping
+            # (den, frac) above — dt_b below still reads them
+            ct = jnp.cos(th1)
+            crossed = jnp.where(accept & (ct_prev * ct < 0.0), one, zero)
+            cden = jnp.abs(ct_prev) + jnp.abs(ct)
+            cfrac = jnp.abs(ct_prev) / jnp.maximum(cden, 1e-30)
+            r_hit = r + cfrac * (r1 - r)
+            ph_hit = ph + cfrac * (ph1 - ph)
+            side = jnp.where(ct_prev > 0.0, one, -one)
+            in_disk = crossed * jnp.where(r_hit >= r_in, one, zero) \
+                * jnp.where(r_hit <= r_out, one, zero)
+            new1 = in_disk * jnp.where(h1 == 0.0, one, zero)
+            new2 = in_disk * jnp.where(h1 != 0.0, one, zero) \
+                * jnp.where(h2 == 0.0, one, zero)
+            h1 = jnp.where(new1 > 0.5, r_hit, h1)
+            h1f = jnp.where(new1 > 0.5, ph_hit, h1f)
+            h1d = jnp.where(new1 > 0.5, side, h1d)
+            h2 = jnp.where(new2 > 0.5, r_hit, h2)
+            h2f = jnp.where(new2 > 0.5, ph_hit, h2f)
+            h2d = jnp.where(new2 > 0.5, side, h2d)
+            ct_prev = jnp.where(accept, ct, ct_prev)
 
-            # select-gated writeback (frozen/rejected rays keep their state;
-            # 0 * inf safety, same invariant as the fixed-step kernel)
-            r = jnp.where(accept, r1, r)
-            th = jnp.where(accept, th1, th)
-            ph = jnp.where(accept, ph1, ph)
-            p_r = jnp.where(accept, pr1, p_r)
-            p_th = jnp.where(accept, pth1, p_th)
+        # select-gated writeback (frozen/rejected rays keep their state;
+        # 0 * inf safety, same invariant as the fixed-step kernel)
+        r = jnp.where(accept, r1, r)
+        th = jnp.where(accept, th1, th)
+        ph = jnp.where(accept, ph1, ph)
+        p_r = jnp.where(accept, pr1, p_r)
+        p_th = jnp.where(accept, pth1, p_th)
 
-            m_chk = (jnp.abs(r) + jnp.abs(th) + jnp.abs(ph)
-                     + jnp.abs(p_r) + jnp.abs(p_th))
-            ok = jnp.where(m_chk <= 1e8, one, zero)
-            acc_f = jnp.where(accept, one, zero)
-            esc_f = jnp.where(esc_i, one, zero)
+        m_chk = (jnp.abs(r) + jnp.abs(th) + jnp.abs(ph)
+                 + jnp.abs(p_r) + jnp.abs(p_th))
+        ok = jnp.where(m_chk <= 1e8, one, zero)
+        acc_f = jnp.where(accept, one, zero)
+        esc_f = jnp.where(esc_i, one, zero)
+        if vol:
+            # radiative transfer on ACCEPTED steps: emission at the
+            # post-step state weighted by the accepted dt (the exact
+            # quadrature the fixed kernel runs at its uniform dte);
+            # select-gated on the finiteness check — 0 * NaN = NaN, a
+            # multiplicative mask cannot stop a blown-up state from
+            # poisoning tau/em
+            dtau, dr_, dg_, db_ = _kerr_vol_emission(
+                blackbody, beaming, params_ref, r, th, b_ph, tau,
+                scatter_off=KERR_SCATTER_OFF if scatter else None)
+            gate = accept & (ok > 0.5)
+            emr = emr + jnp.where(gate, dt * dr_, zero)
+            emg = emg + jnp.where(gate, dt * dg_, zero)
+            emb = emb + jnp.where(gate, dt * db_, zero)
+            tau = tau + jnp.where(gate, dt * dtau, zero)
+        sign = sign + acc_f * (ok * (esc_f
+                                     + 2.0 * jnp.where(r < r_cap, one,
+                                                       zero))
+                               + 3.0 * (one - ok))
+        if vol:
+            # tau_max freeze: OPAQUE == CAPTURED == 2 (render/disk.py)
+            still = jnp.where(sign == 0.0, one, zero)
+            sign = sign + still * 2.0 * jnp.where(tau > tau_max, one,
+                                                  zero)
+        # a reject at dt_min can never pass -> blowup freeze (the XLA
+        # twin's 'stalled' rule; NaN err rejects land here too).  Over-
+        # rejects are INCLUDED: their retry dt_b <= 0.945*dt shrinks
+        # toward dt_min, and an over-reject AT dt_min would retry the
+        # identical trial forever — with this rule every reject path
+        # provably terminates.
+        stalled = alive & ~accept & (dt <= dt_min * 1.01)
+        sign = jnp.where(stalled, 3.0, sign)
+        steps = steps + acc_f
+
+        err_s = jnp.maximum(err, 1e-10)
+        factor = jnp.clip(0.9 * jnp.exp(-0.2 * jnp.log(err_s)), 0.2, 5.0)
+        factor = jnp.where(factor > 0.0, factor, 0.2)   # NaN err -> 0.2
+        dt_b = jnp.clip(dt * frac * 1.05, dt_min, dt_max)
+        live = alive & (sign == 0.0)
+        dt = jnp.where(live, jnp.clip(dt * factor, dt_min, dt_max), dt)
+        dt = jnp.where(over & (sign == 0.0), dt_b, dt)
+        if track_disk or vol:
+            # thin-disk crossings / gas quadrature need base resolution
+            # inside the disk region: a multi-unit adaptive step can
+            # contain a FULL theta oscillation (plane crossed in and
+            # out, same-sign cos(theta) endpoints) that the crossing
+            # detector cannot see, and the volumetric emission is a
+            # first-order quadrature whose resolution the error control
+            # does not bound.  The GAS region is a cylinder (emission
+            # is exactly zero for r sin(theta) > r_out via the edge
+            # clip), so vol clamps on the CYLINDRICAL radius — a
+            # spherical r guard would leave off-plane gas (r up to
+            # r_out/sin(theta)) marched at dt_max, a measured 5% flux
+            # error at inclination 0.3.  Crossing tracking only matters
+            # near the equator, where the spherical guard is the same.
             if vol:
-                # radiative transfer on ACCEPTED steps: emission at the
-                # post-step state weighted by the accepted dt (the exact
-                # quadrature the fixed kernel runs at its uniform dte);
-                # select-gated on the finiteness check — 0 * NaN = NaN, a
-                # multiplicative mask cannot stop a blown-up state from
-                # poisoning tau/em
-                dtau, dr_, dg_, db_ = _kerr_vol_emission(
-                    blackbody, beaming, params_ref, r, th, b_ph, tau,
-                    scatter_off=KERR_SCATTER_OFF if scatter else None)
-                gate = accept & (ok > 0.5)
-                emr = emr + jnp.where(gate, dt * dr_, zero)
-                emg = emg + jnp.where(gate, dt * dg_, zero)
-                emb = emb + jnp.where(gate, dt * db_, zero)
-                tau = tau + jnp.where(gate, dt * dtau, zero)
-            sign = sign + acc_f * (ok * (esc_f
-                                         + 2.0 * jnp.where(r < r_cap, one,
-                                                           zero))
-                                   + 3.0 * (one - ok))
-            if vol:
-                # tau_max freeze: OPAQUE == CAPTURED == 2 (render/disk.py)
-                still = jnp.where(sign == 0.0, one, zero)
-                sign = sign + still * 2.0 * jnp.where(tau > tau_max, one,
-                                                      zero)
-            # a reject at dt_min can never pass -> blowup freeze (the XLA
-            # twin's 'stalled' rule; NaN err rejects land here too).  Over-
-            # rejects are INCLUDED: their retry dt_b <= 0.945*dt shrinks
-            # toward dt_min, and an over-reject AT dt_min would retry the
-            # identical trial forever — with this rule every reject path
-            # provably terminates.
-            stalled = alive & ~accept & (dt <= dt_min * 1.01)
-            sign = jnp.where(stalled, 3.0, sign)
-            steps = steps + acc_f
-
-            err_s = jnp.maximum(err, 1e-10)
-            factor = jnp.clip(0.9 * jnp.exp(-0.2 * jnp.log(err_s)), 0.2, 5.0)
-            factor = jnp.where(factor > 0.0, factor, 0.2)   # NaN err -> 0.2
-            dt_b = jnp.clip(dt * frac * 1.05, dt_min, dt_max)
-            live = alive & (sign == 0.0)
-            dt = jnp.where(live, jnp.clip(dt * factor, dt_min, dt_max), dt)
-            dt = jnp.where(over & (sign == 0.0), dt_b, dt)
-            if track_disk or vol:
-                # thin-disk crossings / gas quadrature need base resolution
-                # inside the disk region: a multi-unit adaptive step can
-                # contain a FULL theta oscillation (plane crossed in and
-                # out, same-sign cos(theta) endpoints) that the crossing
-                # detector cannot see, and the volumetric emission is a
-                # first-order quadrature whose resolution the error control
-                # does not bound.  The GAS region is a cylinder (emission
-                # is exactly zero for r sin(theta) > r_out via the edge
-                # clip), so vol clamps on the CYLINDRICAL radius — a
-                # spherical r guard would leave off-plane gas (r up to
-                # r_out/sin(theta)) marched at dt_max, a measured 5% flux
-                # error at inclination 0.3.  Crossing tracking only matters
-                # near the equator, where the spherical guard is the same.
-                if vol:
-                    # ANTICIPATORY clamp on distance to the gas SLAB:
-                    # inside it dt <= dt0; approaching it, dt <= half the
-                    # larger of the radial gap (to the r_out + 2M cylinder)
-                    # and the vertical gap (to the 5-sigma density shell
-                    # |z| ~ 5 h_rel r_cyl, where dens ~ e^-12.5) —
-                    # |dr/dlambda|, |dz/dlambda| <= ~1 for E ~ 1 photons,
-                    # so a step can never leap from dt_max straight across
-                    # the gas (a reactive clamp leaves the ENTRY step
-                    # unresolved: measured 5% flux error), while zero-
-                    # emission polar rays inside the cylinder keep adaptive
-                    # steps instead of being pinned to dt0
-                    s_th = jnp.abs(jnp.sin(th))
-                    r_cyl = r * s_th
-                    gap_r = r_cyl - (r_out + 2.0 * M)
-                    h_rel5 = 5.0 * jnp.sqrt(
-                        params_ref[0, VOL_BLOCK_KERR + VOL_SLOT["h2"]])
-                    gap_z = r * jnp.abs(jnp.cos(th)) - h_rel5 * r_cyl
-                    dt_gas = jnp.maximum(params_ref[0, 0],
-                                         0.5 * jnp.maximum(gap_r, gap_z))
-                    dt = jnp.where(sign == 0.0, jnp.minimum(dt, dt_gas), dt)
-                else:
-                    near = r < (r_out + 2.0 * M)
-                    dt = jnp.where(near & (sign == 0.0),
-                                   jnp.minimum(dt, params_ref[0, 0]), dt)
-            # step-cap freeze with the planar-rk45 sentinel (iterations !=
-            # steps here, so the cond cannot bound steps by itself)
-            sign = jnp.where((sign == 0.0) & (steps >= max_steps), -128.0,
-                             sign)
+                # ANTICIPATORY clamp on distance to the gas SLAB:
+                # inside it dt <= dt0; approaching it, dt <= half the
+                # larger of the radial gap (to the r_out + 2M cylinder)
+                # and the vertical gap (to the 5-sigma density shell
+                # |z| ~ 5 h_rel r_cyl, where dens ~ e^-12.5) —
+                # |dr/dlambda|, |dz/dlambda| <= ~1 for E ~ 1 photons,
+                # so a step can never leap from dt_max straight across
+                # the gas (a reactive clamp leaves the ENTRY step
+                # unresolved: measured 5% flux error), while zero-
+                # emission polar rays inside the cylinder keep adaptive
+                # steps instead of being pinned to dt0
+                s_th = jnp.abs(jnp.sin(th))
+                r_cyl = r * s_th
+                gap_r = r_cyl - (r_out + 2.0 * M)
+                h_rel5 = 5.0 * jnp.sqrt(
+                    params_ref[0, VOL_BLOCK_KERR + VOL_SLOT["h2"]])
+                gap_z = r * jnp.abs(jnp.cos(th)) - h_rel5 * r_cyl
+                dt_gas = jnp.maximum(params_ref[0, 0],
+                                     0.5 * jnp.maximum(gap_r, gap_z))
+                dt = jnp.where(sign == 0.0, jnp.minimum(dt, dt_gas), dt)
+            else:
+                near = r < (r_out + 2.0 * M)
+                dt = jnp.where(near & (sign == 0.0),
+                               jnp.minimum(dt, params_ref[0, 0]), dt)
+        # step-cap freeze with the planar-rk45 sentinel (iterations !=
+        # steps here, so the cond cannot bound steps by itself)
+        sign = jnp.where((sign == 0.0) & (steps >= max_steps), -128.0,
+                         sign)
         ret = (r, th, ph, p_r, p_th, dt, sign, steps, ct_prev)
         if track_disk:
             ret = ret + (h1, h1f, h1d, h2, h2f, h2d)
         if vol:
             ret = ret + (tau, emr, emg, emb)
-        return ret + (itersv, it + unroll)
+        return ret + (itersv, it + 1)
 
     carry0 = (r, th, ph, p_r, p_th, dt, sign, steps, ct_prev)
     if track_disk:
@@ -2132,76 +1896,36 @@ def _kerr_rk45_kernel(max_steps: int, max_iters: int, unroll: int,
     out_refs[-1][:] = itersv.astype(jnp.int32)
 
 
-@functools.partial(jax.jit, static_argnames=("max_steps", "max_iters",
-                                             "tile_rows", "unroll",
-                                             "track_disk", "vol",
-                                             "scatter",
-                                             "blackbody", "beaming",
-                                             "interpret"))
-def _kerr_rk45_flat_arrays(params, r, th, ph, p_r, p_th, E, L, *, max_steps,
-                           max_iters, tile_rows, unroll, track_disk,
-                           vol=False, scatter=False, blackbody=False,
-                           beaming=False, interpret=False):
-    n_rows = r.shape[0]
-    grid = (n_rows // tile_rows,)
-    dtype = r.dtype
-
-    def row_spec():
-        return pl.BlockSpec((tile_rows, LANES), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-
+@functools.partial(jax.jit, static_argnums=tuple(range(7)))
+def _kerr_rk45_call(max_steps, max_iters, track_disk, vol, scatter,
+                    blackbody, beaming, params, *rays):
     kernel = functools.partial(_kerr_rk45_kernel, max_steps, max_iters,
-                               unroll, track_disk, vol, scatter, blackbody,
-                               beaming)
-    f = jax.ShapeDtypeStruct((n_rows, LANES), dtype)
-    i32 = jax.ShapeDtypeStruct((n_rows, LANES), jnp.int32)
-    out_shape = [f, f, f, f, f, i32, i32]
-    if track_disk:
-        out_shape += [f] * 6                 # (r, phi, side) x two hits
-    if vol:
-        out_shape += [f, f, f, f]            # tau, em_r, em_g, em_b
-    out_shape += [i32]                       # per-ray iteration count (last)
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, params.shape[1]), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ] + [row_spec()] * 7,
-        out_specs=[row_spec()] * len(out_shape),
-        out_shape=out_shape,
-        interpret=interpret,
-    )(params, r, th, ph, p_r, p_th, E, L)
+                               track_disk, vol, scatter, blackbody, beaming)
+    return launch(kernel, params, list(rays),
+                  _kerr_outs(rays[0].dtype, track_disk, vol) + [jnp.int32],
+                  name="kerr_rk45")
 
 
 def march_kerr_rk45_pallas(metric, x0, p0, *, dt0=0.1, max_steps=4_000,
                            max_iters=None, escape_radius, rtol=1e-4,
                            atol=1e-7, dt_min=1e-5, dt_max=None,
                            capture_radius=None, disk=None, vol_disk=None,
-                           vol_row=None, scatter_block=None, tile_rows=32,
-                           unroll=2, interpret=False, return_iters=False):
+                           vol_row=None, scatter_block=None,
+                           return_iters=False):
     """Error-controlled Pallas Kerr/KN march — the kernel twin of
     integrate/rk45.py:march_kerr_rk45 (same contract as march_kerr_pallas;
     ``steps`` counts accepted steps).  ``vol_disk`` (DiskParams with
     volumetric=True) accumulates in-kernel radiative transfer on accepted
     steps, weighted by each ray's accepted dt (extra = (tau, (em_r, em_g,
     em_b))); inside r_out + 2M the step is clamped to dt0 so the gas
-    quadrature keeps the fixed kernel's resolution.  ``unroll >= 2`` dodges
-    the v5e Mosaic relayout bug of unroll=1 while-loop carries."""
-    unroll = max(2, unroll)
+    quadrature keeps the fixed kernel's resolution."""
     dtype = x0.dtype
     if capture_radius is None:
         capture_radius = metric.capture_radius
     if dt_max is None:
-        dt_max = escape_radius / 8.0        # traced-safe (rides the SMEM row)
+        dt_max = escape_radius / 8.0        # traced-safe (rides the scalar row)
     if max_iters is None:
         max_iters = 4 * max_steps
-    # round UP to unroll granularity: the unrolled body always runs in
-    # full, so a live ray can consume ceil(max_iters/unroll)*unroll
-    # iterations — make that bound exact so the per-ray `iters` output
-    # never exceeds max_iters (it is the adjoint's replay bound,
-    # integrate/rk45_adjoint.py)
-    max_iters = -(-int(max_iters) // unroll) * unroll
     vol = vol_disk is not None
     if vol:
         if disk is not None:
@@ -2233,26 +1957,13 @@ def march_kerr_rk45_pallas(metric, x0, p0, *, dt0=0.1, max_steps=4_000,
     params = jnp.stack([jnp.asarray(v, dtype) for v in vals]
                        ).reshape(1, len(vals))
 
-    n = x0.shape[0]
-    block = tile_rows * LANES
-    n_pad = -(-n // block) * block
-
-    def pad(a):
-        a = a.reshape(-1)
-        return jnp.concatenate([a, jnp.full((n_pad - n,), a[0], a.dtype)])
-
-    arrs = [pad(v) for v in (x0[:, 1], x0[:, 2], x0[:, 3],
-                             p0[:, 1], p0[:, 2], -p0[:, 0], p0[:, 3])]
-    shape2 = (n_pad // LANES, LANES)
-    outs = _kerr_rk45_flat_arrays(
-        params, *(a.reshape(shape2) for a in arrs),
-        max_steps=max_steps, max_iters=max_iters, tile_rows=tile_rows,
-        unroll=unroll, track_disk=disk is not None and not vol, vol=vol,
-        scatter=vol and scatter_block is not None,
-        blackbody=vol and vol_disk.color_mode == "blackbody",
-        beaming=vol and (vol_disk.redshift or vol_disk.doppler),
-        interpret=interpret)
-    outs = [a.reshape(-1)[:n] for a in outs]
+    outs = _kerr_rk45_call(
+        max_steps, int(max_iters), disk is not None and not vol, vol,
+        vol and scatter_block is not None,
+        vol and vol_disk.color_mode == "blackbody",
+        vol and (vol_disk.redshift or vol_disk.doppler), params,
+        x0[:, 1], x0[:, 2], x0[:, 3], p0[:, 1], p0[:, 2], -p0[:, 0],
+        p0[:, 3])
     r, th, ph, p_r, p_th, sign, steps = outs[:7]
     zero = jnp.zeros_like(r)
     x = jnp.stack([zero, r, th, ph], axis=-1)

@@ -1,18 +1,18 @@
-"""Fully fused render kernel: camera spawn + planar march + world-direction
-readout in ONE Pallas program.
+"""The fused render kernel: camera spawn, planar march and world-direction
+readout in one Pallas program (Triton route, ops/launch.py).
 
-The SoA pipeline (render/fast.py) spends a few ms per frame on XLA
-elementwise passes (spawn trig/cross products, readout, state HBM I/O around
-the march kernel).  This kernel moves everything except the texture gather
-on-chip: pixel coordinates come from the grid/iota, camera geometry and
-metric parameters ride in SMEM, the march never leaves VMEM, and the output
-is just (w_x, w_y, w_z, sign) per ray.
+The composition (XLA spawn -> march kernel -> XLA readout) streams the
+planar state through device memory twice around the march and runs the
+spawn and readout as separate XLA passes.  Here each program takes its
+block of pixel indices, builds the camera rays and the planar state in
+registers, marches them and writes only (w_x, w_y, w_z, sign) per ray; the
+texture gather stays XLA (render/fast.py).  Measured on the H100 against
+that composition at equal settings (CHANGES.md): faster by 3-6 % for the
+Euler march and 10-20 % for DP5(4), beyond the spread of the runs.
 
-Readout avoids unsupported Mosaic transcendentals: with gamma the local
-direction angle (cos gamma = u_l/|u|, sin gamma = u_psi/|u|) and psi the
-accumulated plane angle,
-    cos(beta) = cos psi cos gamma - sin psi sin gamma, etc.
-needs only sin/cos (supported) — no atan2/acos anywhere.
+The readout needs no atan2: with gamma the local direction angle
+(cos gamma = u_l/|u|, sin gamma = u_psi/|u|) and psi the accumulated plane
+angle, cos(beta) = cos psi cos gamma - sin psi sin gamma, etc.
 """
 from __future__ import annotations
 
@@ -21,20 +21,20 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from curvis_tpu.camera.camera import Camera, camera_rotation
-from curvis_tpu.env.spherical_image import SphericalImage
 from curvis_tpu.metrics.base import Metric
-from curvis_tpu.ops.march_pallas import _deriv_fns, _metric_kind_and_params
+from curvis_tpu.ops.launch import any_alive, launch
+from curvis_tpu.ops.march_pallas import (_DP_A, _DP_B4, _DP_B5, UNROLL,
+                                         CHEB_OFF_COMPACT, _atan_poly,
+                                         _deriv_fns, _metric_kind_and_params,
+                                         _shape_fns)
 from curvis_tpu.physics.planar import _unit_lapse
 
-LANES = 128
-
-
-# fused-row Chebyshev tail offset: the (1, 32) camera/metric scalar row is
-# full, so a table metric's coefficient tail rides right after it
+# Row layout: [0:6] the compact march row (dt, R, metric params, capture),
+# [6:29] camera and spawn scalars (_row below), [29:32] the DP5(4)
+# controller (rtol, atol, dt_max); a table metric's Chebyshev tail follows
+# at FUSED_CHEB_OFF.
 FUSED_CHEB_OFF = 32
 
 
@@ -56,23 +56,21 @@ def _r_of_l(kind, pr, l):
     if kind in ("flat", "schwarzschild", "rn"):
         return jnp.abs(l)
     if kind == "interstellar":
-        from curvis_tpu.ops.march_pallas import _atan_poly
         m, a, rho = pr[0, 2], pr[0, 3], pr[0, 4]
         al = jnp.abs(l)
         x = 2.0 * (al - a) / (jnp.pi * m)
-        atx = _atan_poly(x)
-        r_out = rho + m * (x * atx - 0.5 * jnp.log(1.0 + x * x))
+        r_out = rho + m * (x * _atan_poly(x) - 0.5 * jnp.log(1.0 + x * x))
         return jnp.where(al > a, r_out, rho)
     if kind.startswith("cheb"):
-        from curvis_tpu.ops.march_pallas import _shape_fns
         inv_r2, _ = _shape_fns(kind, FUSED_CHEB_OFF)(pr, l)
         return lax.rsqrt(jnp.maximum(inv_r2, 1e-30))
     raise NotImplementedError(kind)
 
 
-def _fused_spawn(pr, H, rows):
-    """Camera ray + planar spawn from the SMEM scalar row (shared by the
-    Euler and rk45 fused kernels — exact op order preserved)."""
+def _spawn(pr, H, idx):
+    """Camera ray and planar state of pixel ``idx`` (column-major, like
+    render/fast.py's _pixel_dirs_soa; the same operation order as its
+    _spawn_planar_soa)."""
     focal, sw, sh = pr[0, 6], pr[0, 7], pr[0, 8]
     invW, invH = pr[0, 9], pr[0, 10]
     R00, R01, R02 = pr[0, 11], pr[0, 12], pr[0, 13]
@@ -80,21 +78,13 @@ def _fused_spawn(pr, H, rows):
     R20, R21, R22 = pr[0, 17], pr[0, 18], pr[0, 19]
     rx, ry, rz = pr[0, 20], pr[0, 21], pr[0, 22]
     fx, fy, fz = pr[0, 23], pr[0, 24], pr[0, 25]       # degenerate fallback
-    l0 = pr[0, 26]
-    s_pl = pr[0, 27]
-    s_b = pr[0, 28]
+    l0, s_pl, s_b = pr[0, 26], pr[0, 27], pr[0, 28]
 
-    base = pl.program_id(0) * rows * LANES
-    row_i = jax.lax.broadcasted_iota(jnp.int32, (rows, LANES), 0)
-    lane_i = jax.lax.broadcasted_iota(jnp.int32, (rows, LANES), 1)
-    idx = base + row_i * LANES + lane_i
     xpix = idx // H
     ypix = idx - xpix * H
-
-    # ---- camera ray (cameras.rs:150-172 semantics, SoA) ----
     wfrac = xpix.astype(jnp.float32) * invW - 0.5
     hfrac = 0.5 - ypix.astype(jnp.float32) * invH
-    vx = focal
+    vx = focal + jnp.zeros_like(wfrac)
     vy = -sw * wfrac
     vz = sh * hfrac
     inv = lax.rsqrt(vx * vx + vy * vy + vz * vz)
@@ -103,34 +93,25 @@ def _fused_spawn(pr, H, rows):
     dy = R10 * vxn + R11 * vyn + R12 * vzn
     dz = R20 * vxn + R21 * vyn + R22 * vzn
 
-    # ---- planar spawn ----
     cos_a = jnp.clip(dx * rx + dy * ry + dz * rz, -1.0, 1.0)
     nx = ry * dz - rz * dy
     ny = rz * dx - rx * dz
     nz = rx * dy - ry * dx
     sin_a = jnp.sqrt(jnp.maximum(1.0 - cos_a * cos_a, 0.0))
-    # gate on the computed cross norm, not sin_a (see render/fast.py: TPU
-    # FMA rounding can make them disagree at d ~ -r_hat -> rsqrt(0) NaN)
+    # gate on the computed cross norm, not sin_a (render/fast.py)
     n2 = nx * nx + ny * ny + nz * nz
     deg = n2 < 1e-12
     nn = lax.rsqrt(jnp.where(deg, 1.0, n2))
     nx = jnp.where(deg, fx, nx * nn)
     ny = jnp.where(deg, fy, ny * nn)
     nz = jnp.where(deg, fz, nz * nn)
-    e2x = ny * rz - nz * ry
-    e2y = nz * rx - nx * rz
-    e2z = nx * ry - ny * rx
-    p_l = cos_a * s_pl
-    b = sin_a * s_b
-    l = jnp.full((rows, LANES), 1.0, jnp.float32) * l0
-    psi = jnp.zeros((rows, LANES), jnp.float32)
-    return l, psi, p_l, b, (rx, ry, rz), (e2x, e2y, e2z)
+    e2 = (ny * rz - nz * ry, nz * rx - nx * rz, nx * ry - ny * rx)
+    l = jnp.full_like(cos_a, 1.0) * l0
+    return l, jnp.zeros_like(l), cos_a * s_pl, sin_a * s_b, (rx, ry, rz), e2
 
 
-def _fused_readout(kind, pr, l, psi, p_l, b, r_hat, e2,
-                   owx_ref, owy_ref, owz_ref):
-    """World-direction readout (shared): w = cos(beta) e1 + sin(beta) e2
-    without atan2 (module docstring)."""
+def _readout(kind, pr, l, psi, p_l, b, r_hat, e2, owx, owy, owz):
+    """w = cos(beta) r_hat + sin(beta) e2 without atan2 (module doc)."""
     rx, ry, rz = r_hat
     e2x, e2y, e2z = e2
     u_l = _readout_u_l(kind, pr, l, p_l)
@@ -141,28 +122,24 @@ def _fused_readout(kind, pr, l, psi, p_l, b, r_hat, e2,
     cp = jnp.cos(psi)
     sp = jnp.sin(psi)
     cb = cp * cg - sp * sg
-    sb_ = sp * cg + cp * sg
-    owx_ref[:] = cb * rx + sb_ * e2x
-    owy_ref[:] = cb * ry + sb_ * e2y
-    owz_ref[:] = cb * rz + sb_ * e2z
+    sb = sp * cg + cp * sg
+    owx[:] = cb * rx + sb * e2x
+    owy[:] = cb * ry + sb * e2y
+    owz[:] = cb * rz + sb * e2z
 
 
-def _fused_kernel(kind: str, H: int, max_steps: int, unroll: int,
-                  params_ref, owx_ref, owy_ref, owz_ref, osign_ref):
+def _euler_kernel(kind, H, max_steps, unroll, pr, idx_ref,
+                  owx, owy, owz, osign):
+    """Spawn + the Euler march of ops/march_pallas._march_kernel (maskless
+    sprint, then masked steps) + readout."""
     deriv = _deriv_fns(kind, FUSED_CHEB_OFF)
-    pr = params_ref
-    dt = pr[0, 0]
-    R = pr[0, 1]
-    r_cap = pr[0, 5]
-
-    rows = owx_ref.shape[0]
-    l, psi, p_l, b, r_hat, e2 = _fused_spawn(pr, H, rows)
+    dt, R, r_cap = pr[0, 0], pr[0, 1], pr[0, 5]
+    l, psi, p_l, b, r_hat, e2 = _spawn(pr, H, idx_ref[:])
     b2 = b * b
     one = jnp.ones_like(l)
     zero = jnp.zeros_like(l)
     sign = jnp.zeros_like(l)
 
-    # ---- march: maskless sprint then masked phase (march_pallas.py) ----
     m0 = jnp.max(jnp.abs(l))
     d_free = jnp.minimum(R - m0, jnp.min(l) - r_cap)
     k_free = jnp.floor(d_free / (dt * 1.05) - 2.0).astype(jnp.int32)
@@ -172,7 +149,7 @@ def _fused_kernel(kind: str, H: int, max_steps: int, unroll: int,
     def sprint(i, c):
         l, psi, p_l = c
         for _ in range(unroll):
-            dl, dpsi, dpl = deriv(params_ref, l, p_l, b, b2)
+            dl, dpsi, dpl = deriv(pr, l, p_l, b, b2)
             l = l + dt * dl
             psi = psi + dt * dpsi
             p_l = p_l + dt * dpl
@@ -181,15 +158,14 @@ def _fused_kernel(kind: str, H: int, max_steps: int, unroll: int,
     l, psi, p_l = lax.fori_loop(0, k_free // unroll, sprint, (l, psi, p_l))
 
     def cond(c):
-        _, _, _, sign, it = c
-        return (it < max_steps) & jnp.any(sign == 0.0)
+        return (c[4] < max_steps) & any_alive(c[3])
 
     def body(c):
         l, psi, p_l, sign, it = c
         for _ in range(unroll):
             alive = jnp.where(sign == 0.0, one, zero)
             dte = dt * alive
-            dl, dpsi, dpl = deriv(params_ref, l, p_l, b, b2)
+            dl, dpsi, dpl = deriv(pr, l, p_l, b, b2)
             l = l + dte * dl
             psi = psi + dte * dpsi
             p_l = p_l + dte * dpl
@@ -200,32 +176,18 @@ def _fused_kernel(kind: str, H: int, max_steps: int, unroll: int,
 
     l, psi, p_l, sign, _ = lax.while_loop(
         cond, body, (l, psi, p_l, sign, k_free))
-
-    _fused_readout(kind, pr, l, psi, p_l, b, r_hat, e2,
-                   owx_ref, owy_ref, owz_ref)
-    osign_ref[:] = sign.astype(jnp.int32)
+    _readout(kind, pr, l, psi, p_l, b, r_hat, e2, owx, owy, owz)
+    osign[:] = sign.astype(jnp.int32)
 
 
-def _fused_rk45_kernel(kind: str, H: int, max_steps: int, max_iters: int,
-                       unroll: int, params_ref,
-                       owx_ref, owy_ref, owz_ref, osign_ref):
-    """Fused spawn + adaptive DP5(4) march + readout (round 5, the
-    quality-mode ceiling probe): the bare planar rk45 of
-    ops/march_pallas._rk45_kernel inside the fused pipeline.  Controller
-    knobs ride the spare scalar slots: [29]=rtol [30]=atol [31]=dt_max;
-    dt floor hardcoded 1e-6 (kernel contract)."""
-    from curvis_tpu.ops.march_pallas import _DP_A, _DP_B4, _DP_B5
+def _rk45_kernel(kind, H, max_steps, max_iters, pr, idx_ref,
+                 owx, owy, owz, osign):
+    """Spawn + the bare adaptive DP5(4) march of
+    ops/march_pallas._rk45_kernel + readout; dt floor 1e-6."""
     deriv = _deriv_fns(kind, FUSED_CHEB_OFF)
-    pr = params_ref
-    dt0 = pr[0, 0]
-    R = pr[0, 1]
-    r_cap = pr[0, 5]
-    rtol = pr[0, 29]
-    atol = pr[0, 30]
-    dt_max = pr[0, 31]
-
-    rows = owx_ref.shape[0]
-    l, psi, p_l, b, r_hat, e2 = _fused_spawn(pr, H, rows)
+    dt0, R, r_cap = pr[0, 0], pr[0, 1], pr[0, 5]
+    rtol, atol, dt_max = pr[0, 29], pr[0, 30], pr[0, 31]
+    l, psi, p_l, b, r_hat, e2 = _spawn(pr, H, idx_ref[:])
     b2 = b * b
     one = jnp.ones_like(l)
     zero = jnp.zeros_like(l)
@@ -233,225 +195,135 @@ def _fused_rk45_kernel(kind: str, H: int, max_steps: int, max_iters: int,
     steps = jnp.zeros_like(l)
     dt = jnp.full_like(l, 1.0) * dt0
 
-    def rhs(li, pli):
-        return deriv(pr, li, pli, b, b2)
-
     def cond(c):
-        sign = c[4]
-        it = c[-1]
-        return (it < max_iters) & jnp.any(sign == 0.0)
+        return (c[-1] < max_iters) & any_alive(c[4])
 
     def body(c):
         l, psi, p_l, dt, sign, steps, it = c
-        for _ in range(unroll):
-            alive = jnp.where((sign == 0.0) & (steps < max_steps), one,
-                              zero)
-            ks = []
-            for i in range(7):
-                li = l
-                pli = p_l
-                for j, a in enumerate(_DP_A[i]):
-                    li = li + dt * a * ks[j][0]
-                    pli = pli + dt * a * ks[j][2]
-                ks.append(rhs(li, pli))
+        alive = jnp.where((sign == 0.0) & (steps < max_steps), one, zero)
+        ks = []
+        for i in range(7):
+            li, pli = l, p_l
+            for j, a in enumerate(_DP_A[i]):
+                li = li + dt * a * ks[j][0]
+                pli = pli + dt * a * ks[j][2]
+            ks.append(deriv(pr, li, pli, b, b2))
 
-            def comb(w, comp):
-                acc = zero
-                for wi, k in zip(w, ks):
-                    if wi != 0.0:
-                        acc = acc + wi * k[comp]
-                return acc
+        def comb(w, comp):
+            acc = zero
+            for wi, k in zip(w, ks):
+                if wi != 0.0:
+                    acc = acc + wi * k[comp]
+            return acc
 
-            d5l, d5p, d5pl = (comb(_DP_B5, 0), comb(_DP_B5, 1),
-                              comb(_DP_B5, 2))
-            e_l = d5l - comb(_DP_B4, 0)
-            e_p = d5p - comb(_DP_B4, 1)
-            e_pl = d5pl - comb(_DP_B4, 2)
-            l5 = l + dt * d5l
-            psi5 = psi + dt * d5p
-            pl5 = p_l + dt * d5pl
+        d5l, d5p, d5pl = comb(_DP_B5, 0), comb(_DP_B5, 1), comb(_DP_B5, 2)
+        e_l = d5l - comb(_DP_B4, 0)
+        e_p = d5p - comb(_DP_B4, 1)
+        e_pl = d5pl - comb(_DP_B4, 2)
+        l5 = l + dt * d5l
+        psi5 = psi + dt * d5p
+        pl5 = p_l + dt * d5pl
 
-            def ec(e, y0, y1):
-                return jnp.abs(dt * e) / (atol + rtol * jnp.maximum(
-                    jnp.abs(y0), jnp.abs(y1)))
+        def ec(e, y0, y1):
+            return jnp.abs(dt * e) / (atol + rtol * jnp.maximum(
+                jnp.abs(y0), jnp.abs(y1)))
 
-            err = jnp.maximum(ec(e_l, l, l5),
-                              jnp.maximum(ec(e_p, psi, psi5),
-                                          ec(e_pl, p_l, pl5)))
-            accept = alive * jnp.where(err <= 1.0, one, zero)
-            esc_pos = accept * jnp.where(l5 > R, one, zero)
-            esc_neg = accept * jnp.where(l5 < -R, one, zero)
-            esc = esc_pos + esc_neg
-            target = jnp.where(esc_pos > 0, R, -R)
-            denom = l5 - l
-            denom = jnp.where(jnp.abs(denom) < 1e-30, one, denom)
-            frac = jnp.clip((target - l) / denom, 0.0, 1.0)
-            frac = jnp.where(esc > 0, frac, one)
-            l = l + accept * frac * (l5 - l)
-            psi = psi + accept * frac * (psi5 - psi)
-            p_l = p_l + accept * frac * (pl5 - p_l)
-            capd = accept * jnp.where((l < r_cap) & (sign == 0.0), one,
-                                      zero)
-            sign = sign + esc_pos - esc_neg + 2.0 * capd
-            steps = steps + accept
-            stalled = ((alive > 0) & ~(err <= 1.0) & (dt <= 1e-6 * 1.01)
-                       & (sign == 0.0))
-            sign = jnp.where(stalled, 3.0, sign)
-            err_s = jnp.maximum(err, 1e-10)
-            factor = jnp.clip(0.9 * jnp.exp(-0.2 * jnp.log(err_s)),
-                              0.2, 5.0)
-            factor = jnp.where(factor > 0.0, factor, 0.2)
-            newdt = jnp.clip(dt * factor, 1e-6, dt_max)
-            dt = jnp.where((alive > 0) & (esc == 0.0) & (sign == 0.0),
-                           newdt, dt)
-            capped = (sign == 0.0) & (steps >= max_steps)
-            sign = jnp.where(capped, -128.0, sign)
-        return l, psi, p_l, dt, sign, steps, it + unroll
+        err = jnp.maximum(ec(e_l, l, l5),
+                          jnp.maximum(ec(e_p, psi, psi5), ec(e_pl, p_l, pl5)))
+        accept = alive * jnp.where(err <= 1.0, one, zero)
+        esc_pos = accept * jnp.where(l5 > R, one, zero)
+        esc_neg = accept * jnp.where(l5 < -R, one, zero)
+        esc = esc_pos + esc_neg
+        target = jnp.where(esc_pos > 0, R, -R)
+        denom = l5 - l
+        denom = jnp.where(jnp.abs(denom) < 1e-30, one, denom)
+        frac = jnp.clip((target - l) / denom, 0.0, 1.0)
+        frac = jnp.where(esc > 0, frac, one)
+        l = l + accept * frac * (l5 - l)
+        psi = psi + accept * frac * (psi5 - psi)
+        p_l = p_l + accept * frac * (pl5 - p_l)
+        capd = accept * jnp.where((l < r_cap) & (sign == 0.0), one, zero)
+        sign = sign + esc_pos - esc_neg + 2.0 * capd
+        steps = steps + accept
+        stalled = ((alive > 0) & ~(err <= 1.0) & (dt <= 1e-6 * 1.01)
+                   & (sign == 0.0))
+        sign = jnp.where(stalled, 3.0, sign)
+        err_s = jnp.maximum(err, 1e-10)
+        factor = jnp.clip(0.9 * jnp.exp(-0.2 * jnp.log(err_s)), 0.2, 5.0)
+        factor = jnp.where(factor > 0.0, factor, 0.2)
+        newdt = jnp.clip(dt * factor, 1e-6, dt_max)
+        dt = jnp.where((alive > 0) & (esc == 0.0) & (sign == 0.0), newdt, dt)
+        capped = (sign == 0.0) & (steps >= max_steps)
+        sign = jnp.where(capped, -128.0, sign)
+        return l, psi, p_l, dt, sign, steps, it + 1
 
     l, psi, p_l, dt, sign, steps, _ = lax.while_loop(
         cond, body, (l, psi, p_l, dt, sign, steps, jnp.int32(0)))
     sign = jnp.where(sign == -128.0, zero, sign)
-    _fused_readout(kind, pr, l, psi, p_l, b, r_hat, e2,
-                   owx_ref, owy_ref, owz_ref)
-    osign_ref[:] = sign.astype(jnp.int32)
+    _readout(kind, pr, l, psi, p_l, b, r_hat, e2, owx, owy, owz)
+    osign[:] = sign.astype(jnp.int32)
 
 
-@functools.partial(jax.jit, static_argnames=("kind", "H", "n_rays",
-                                             "max_steps", "max_iters",
-                                             "tile_rows", "unroll",
-                                             "stepper", "interpret"))
-def _fused_call(kind, params, *, H, n_rays, max_steps, tile_rows, unroll,
-                stepper="euler", max_iters=0, interpret=False):
-    block = tile_rows * LANES
-    n_pad = -(-n_rays // block) * block
-    n_rows = n_pad // LANES
-    grid = (n_rows // tile_rows,)
-
-    def row_spec():
-        return pl.BlockSpec((tile_rows, LANES), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-
-    if stepper == "rk45":
-        kernel = functools.partial(_fused_rk45_kernel, kind, H, max_steps,
-                                   max_iters, unroll)
+@functools.partial(jax.jit, static_argnums=(0, 1, 2, 3, 4))
+def _fused_call(kind, H, n, max_steps, max_iters, params):
+    f, i32 = jnp.float32, jnp.int32
+    if max_iters is not None:
+        kernel = functools.partial(_rk45_kernel, kind, H, max_steps,
+                                   max_iters)
+        name = "fused_rk45"
     else:
-        kernel = functools.partial(_fused_kernel, kind, H, max_steps,
-                                   unroll)
-    f = jax.ShapeDtypeStruct((n_rows, LANES), jnp.float32)
-    i32 = jax.ShapeDtypeStruct((n_rows, LANES), jnp.int32)
-    outs = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[pl.BlockSpec((1, params.shape[1]), lambda i: (0, 0),
-                               memory_space=pltpu.SMEM)],
-        out_specs=[row_spec()] * 4,
-        out_shape=[f, f, f, i32],
-        interpret=interpret,
-    )(params)
-    return [a.reshape(-1)[:n_rays] for a in outs]
+        unroll = UNROLL
+        while max_steps % unroll:    # exact step cap (march_planar_pallas)
+            unroll //= 2
+        kernel = functools.partial(_euler_kernel, kind, H, max_steps, unroll)
+        name = "fused_euler"
+    return launch(kernel, params, [jnp.arange(n, dtype=i32)],
+                  [f, f, f, i32], name=name)
 
 
-def render_planar_fused(metric: Metric, camera: Camera,
-                        bg_positive: SphericalImage,
-                        bg_negative: SphericalImage, *, dt, max_steps,
-                        escape_radius, filtering="nearest", tile_rows=32,
-                        unroll=8, stepper="euler", rtol=1e-4, atol=None,
-                        dt_max=10.0, max_iters=None, interpret=False):
-    """(H, W, 3) image with the whole compute path in one kernel + a gather.
-
-    f32 only; every planar metric family — the reference set (Ellis/DNEG/
-    flat), Schwarzschild, Reissner-Nordstrom and Chebyshev-tabulated user
-    metrics (round 4: the charged and user-defined kinds now take the
-    headline fused path instead of silently falling back, VERDICT round-3
-    weak #8; a table metric's coefficient tail rides after the 32 camera
-    scalars).  Semantics match render_planar_fast up to fused-arithmetic
-    ulps (tested).
-
-    ``stepper='rk45'`` (round 5, the quality-mode ceiling): the adaptive
-    DP5(4) march fused into the same pipeline — ``dt`` becomes the initial
-    step, ``max_steps`` counts accepted steps (pass rk45-scale values),
-    and the error is bounded by ``rtol``.  At rtol ~1e-3..1e-4 this takes
-    ~10x fewer steps than parity Euler at sub-texel direction error."""
+def _row(metric, camera, dt, escape_radius, rk45):
     dtype = jnp.float32
     pos = camera.position.astype(dtype)
     W, H = camera.resolution_x, camera.resolution_y
-    kind, base_params = _metric_kind_and_params(metric, dt, escape_radius,
-                                                dtype)
-
-    import jax.numpy as jnp_
+    kind, base = _metric_kind_and_params(metric, dt, escape_radius, dtype)
     th, ph = pos[2], pos[3]
-    st, ct = jnp_.sin(th), jnp_.cos(th)
-    spp, cpp = jnp_.sin(ph), jnp_.cos(ph)
-    r_hat = jnp_.stack([st * cpp, st * spp, ct])
-    th_hat = jnp_.stack([ct * cpp, ct * spp, -st])
-    Rcam = camera_rotation(camera).astype(dtype)
+    st, ct = jnp.sin(th), jnp.cos(th)
+    sp, cp = jnp.sin(ph), jnp.cos(ph)
+    r_hat = jnp.stack([st * cp, st * sp, ct])
+    th_hat = jnp.stack([ct * cp, ct * sp, -st])
+    Rc = camera_rotation(camera).astype(dtype)
     aspect = W / H
-    sh_ = jnp_.sqrt(camera.sensor_diagonal.astype(dtype) ** 2
-                    / (aspect * aspect + 1.0))
-    sw_ = aspect * sh_
+    sh = jnp.sqrt(camera.sensor_diagonal.astype(dtype) ** 2
+                  / (aspect * aspect + 1.0))
     l0 = pos[1]
     if _unit_lapse(metric):
-        s_pl = jnp_.asarray(1.0, dtype)
-        s_b = metric.r(l0)
+        s_pl, s_b = jnp.asarray(1.0, dtype), metric.r(l0)
     else:
         A0 = metric.lapse(l0)
-        s_pl = jnp_.sqrt(metric.radial_B(l0) / A0)
-        s_b = metric.r(l0) / jnp_.sqrt(A0)
-
-    scal = [base_params[0, 0], base_params[0, 1], base_params[0, 2],
-            base_params[0, 3], base_params[0, 4], base_params[0, 5],
-            camera.focal_length.astype(dtype), sw_, sh_,
-            jnp_.asarray(1.0 / W, dtype), jnp_.asarray(1.0 / H, dtype),
-            Rcam[0, 0], Rcam[0, 1], Rcam[0, 2],
-            Rcam[1, 0], Rcam[1, 1], Rcam[1, 2],
-            Rcam[2, 0], Rcam[2, 1], Rcam[2, 2],
-            r_hat[0], r_hat[1], r_hat[2],
-            th_hat[0], th_hat[1], th_hat[2],
-            l0, s_pl, s_b]
-    if stepper == "rk45":
-        if atol is None:
-            atol = rtol * 1e-3
-        scal += [jnp_.asarray(rtol, dtype), jnp_.asarray(atol, dtype),
-                 jnp_.asarray(dt_max, dtype)]
-    scal += [jnp_.zeros((), dtype)] * (FUSED_CHEB_OFF - len(scal))
-    params = jnp_.stack([jnp_.asarray(v, dtype)
-                         for v in scal]).reshape(1, FUSED_CHEB_OFF)
+        s_pl = jnp.sqrt(metric.radial_B(l0) / A0)
+        s_b = metric.r(l0) / jnp.sqrt(A0)
+    scal = [base[0, k] for k in range(6)]
+    scal += [camera.focal_length.astype(dtype), aspect * sh, sh,
+             1.0 / W, 1.0 / H]
+    scal += [Rc[i, j] for i in range(3) for j in range(3)]
+    scal += [r_hat[0], r_hat[1], r_hat[2], th_hat[0], th_hat[1], th_hat[2],
+             l0, s_pl, s_b]
+    scal += list(rk45[:3]) if rk45 is not None else [0.0, 0.0, 0.0]
+    assert len(scal) == FUSED_CHEB_OFF
+    row = jnp.stack([jnp.asarray(v, dtype) for v in scal]).reshape(1, -1)
     if kind.startswith("cheb"):
-        # the coefficient tail rides after the camera scalars (the kernel
-        # reads it at FUSED_CHEB_OFF — layout contract like march_pallas)
-        from curvis_tpu.ops.march_pallas import CHEB_OFF_COMPACT
-        params = jnp_.concatenate(
-            [params, base_params[:, CHEB_OFF_COMPACT:].astype(dtype)],
-            axis=1)
+        row = jnp.concatenate(
+            [row, base[:, CHEB_OFF_COMPACT:].astype(dtype)], axis=1)
+    return kind, row
 
-    if stepper == "rk45":
-        unroll = 2                       # relayout-bug floor; deep unroll
-        mi = 4 * max_steps if max_iters is None else int(max_iters)
-        mi = mi + ((unroll - mi % unroll) % unroll)
-        wx, wy, wz, sign = _fused_call(kind, params, H=H, n_rays=W * H,
-                                       max_steps=max_steps, max_iters=mi,
-                                       tile_rows=tile_rows, unroll=unroll,
-                                       stepper="rk45", interpret=interpret)
-    else:
-        ms = max_steps + ((unroll - max_steps % unroll) % unroll)
-        wx, wy, wz, sign = _fused_call(kind, params, H=H, n_rays=W * H,
-                                       max_steps=ms, tile_rows=tile_rows,
-                                       unroll=unroll, interpret=interpret)
 
-    from curvis_tpu.render.fast import _filter_lookup, _texture_uv
-    if bg_positive.texture.shape == bg_negative.texture.shape:
-        up, vp = _texture_uv(bg_positive, wx, wy, wz)
-        un, vn = _texture_uv(bg_negative, wx, wy, wz)
-        neg = sign == -1
-        u = jnp_.where(neg, un, up)
-        v = jnp_.where(neg, vn, vp)
-        Ht, Wt = bg_positive.height, bg_positive.width
-        rows = jnp_.concatenate([bg_positive.texture.reshape(-1, 3),
-                                 bg_negative.texture.reshape(-1, 3)])
-        bbase = jnp_.where(neg, Ht * Wt, 0)
-        colors = _filter_lookup(rows, bbase, u, v, Wt, Ht, filtering)
-    else:
-        raise ValueError("fused renderer requires equal background shapes")
-    lit = (sign == 1) | (sign == -1)
-    colors = jnp_.where(lit[:, None], colors, jnp_.zeros_like(colors))
-    return colors.reshape(W, H, 3).transpose(1, 0, 2)
+def render_fused_pallas(metric: Metric, camera: Camera, *, dt, max_steps,
+                        escape_radius, rk45=None):
+    """Escape directions and signs of every pixel, each (W*H,) in the
+    column-major pixel order of render/fast.py: the fused kernel, float32.
+    ``rk45=(rtol, atol, dt_max, max_iters)`` selects the DP5(4) march
+    (``dt`` the initial step); None the Euler march."""
+    kind, row = _row(metric, camera, dt, escape_radius, rk45)
+    W, H = camera.resolution_x, camera.resolution_y
+    return _fused_call(kind, H, W * H, int(max_steps),
+                       None if rk45 is None else int(rk45[3]), row)

@@ -1,7 +1,7 @@
 """Multi-host rendering: process groups, deterministic work partitioning,
 per-host tile outputs with resume.
 
-TPU-native multi-host design (SURVEY.md section 5, "Distributed communication
+Multi-host design (SURVEY.md section 5, "Distributed communication
 backend"): `jax.distributed.initialize` forms the process group (ICI within a
 slice, DCN across hosts); the *render* workload needs no cross-host
 communication at all — the pixel space is partitioned deterministically into

@@ -1,6 +1,6 @@
 """Device-mesh construction and ray-axis sharding helpers.
 
-TPU-native parallelism design (SURVEY.md section 2, "Parallelism status"):
+Parallelism design (SURVEY.md section 2, "Parallelism status"):
 the reference is single-threaded (README.md:110); its natural work axes are
 per-pixel rays, per-alpha samples, and per-frame videos.  Here the ray/pixel
 axis is sharded over a 1-D ``Mesh`` ('rays'); video adds a 'frames' axis.

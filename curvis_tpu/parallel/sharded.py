@@ -50,25 +50,25 @@ def render_direct_shardmap(metric, camera: Camera,
                            bg_positive: SphericalImage,
                            bg_negative: SphericalImage, mesh: Mesh, *, dt,
                            max_steps, escape_radius, filtering="nearest",
-                           stepper="euler", use_pallas="auto",
-                           interpret=False):
+                           stepper="euler", use_pallas="auto"):
     """Explicit-collectives variant: `shard_map` over the ray axis with the
-    *Pallas kernel running per shard* — the production pod path (GSPMD
-    cannot partition a pallas_call; shard_map gives each device its own
-    kernel launch over its ray shard).  ``interpret=True`` runs the kernel
-    in interpreter mode (CPU virtual-mesh testing).
+    *Pallas kernel running per shard* — the production multi-card path
+    (GSPMD cannot partition a pallas_call; shard_map gives each device its
+    own kernel launch over its ray shard).  ``use_pallas='auto'`` follows
+    the dispatch rule (curvis_tpu/dispatch.py); on the CPU a forced kernel
+    runs in interpret mode (virtual-mesh testing).
     """
     try:
         from jax import shard_map as _shard_map
     except ImportError:
         from jax.experimental.shard_map import shard_map as _shard_map
     from jax.sharding import PartitionSpec as P
-    from curvis_tpu.integrate.march import _on_tpu
+    from curvis_tpu.dispatch import use_kernel
     from curvis_tpu.render.fast import (_pixel_dirs_soa,
                                         _spawn_planar_soa)
 
     if use_pallas == "auto":
-        use_pallas = _on_tpu() or interpret
+        use_pallas = use_kernel(camera.position.dtype)
     n_dev = mesh.devices.size
     dx, dy, dz = _pixel_dirs_soa(camera)
     (l, psi, p_l, b), r_hat, e2 = _spawn_planar_soa(metric, camera, dx, dy,
@@ -86,9 +86,7 @@ def render_direct_shardmap(metric, camera: Camera,
             from curvis_tpu.ops.march_pallas import march_planar_pallas
             res = march_planar_pallas(metric, rays, dt=dt,
                                       max_steps=max_steps,
-                                      escape_radius=escape_radius,
-                                      sort=False, tile_rows=8,
-                                      interpret=interpret)
+                                      escape_radius=escape_radius)
         else:
             res = pl.march_planar_while(metric, rays, dt=dt,
                                         max_steps=max_steps,
@@ -164,13 +162,13 @@ def render_frames_sharded(metric, cameras, bg_positive: SphericalImage,
 def render_frames_shardmap(metric, cameras, bg_positive: SphericalImage,
                            bg_negative: SphericalImage, mesh: Mesh, *, dt,
                            max_steps, escape_radius, filtering="nearest",
-                           use_pallas="auto", tile_rows=8, interpret=False):
-    """Video pod path: ('frames', 'rays') mesh with ONE Pallas kernel
-    launch per device over its (local frames x local rays) block — the
-    shard_map twin of :func:`render_frames_sharded`.  GSPMD cannot
-    partition a ``pallas_call``, so on a real pod the GSPMD variant
-    marches at XLA speed while this one keeps every chip on the kernel
-    (same rule as render_direct_shardmap / the Kerr wrappers).
+                           use_pallas="auto"):
+    """Multi-card video path: ('frames', 'rays') mesh with ONE Pallas
+    kernel launch per device over its (local frames x local rays) block —
+    the shard_map twin of :func:`render_frames_sharded`.  GSPMD cannot
+    partition a ``pallas_call``, so the GSPMD variant marches at XLA speed
+    while this one keeps every card on the kernel (same rule as
+    render_direct_shardmap / the Kerr wrappers).
 
     Reference context: the video loop renders frames serially on one
     thread (/root/reference/src/rendering.rs:291-316); here F frames x N
@@ -182,13 +180,13 @@ def render_frames_shardmap(metric, cameras, bg_positive: SphericalImage,
     except ImportError:
         from jax.experimental.shard_map import shard_map as _shard_map
     from jax.sharding import PartitionSpec as P
-    from curvis_tpu.integrate.march import _on_tpu
+    from curvis_tpu.dispatch import use_kernel
     from curvis_tpu.parallel.mesh import FRAMES, RAYS
     from curvis_tpu.render.fast import _pixel_dirs_soa, _spawn_planar_soa
 
-    if use_pallas == "auto":
-        use_pallas = _on_tpu() or interpret
     cams = list(cameras)
+    if use_pallas == "auto":
+        use_pallas = use_kernel(cams[0].position.dtype)
     W, H = cams[0].resolution_x, cams[0].resolution_y
     if any((c.resolution_x, c.resolution_y) != (W, H) for c in cams):
         raise ValueError("all cameras in a batch must share a resolution")
@@ -221,9 +219,7 @@ def render_frames_shardmap(metric, cameras, bg_positive: SphericalImage,
             from curvis_tpu.ops.march_pallas import march_planar_pallas
             res = march_planar_pallas(metric, rays, dt=dt,
                                       max_steps=max_steps,
-                                      escape_radius=escape_radius,
-                                      sort=False, tile_rows=tile_rows,
-                                      interpret=interpret)
+                                      escape_radius=escape_radius)
         else:
             res = pl.march_planar_while(metric, rays, dt=dt,
                                         max_steps=max_steps,
@@ -354,10 +350,9 @@ def render_kerr_sharded(metric, cameras, bg: SphericalImage, mesh: Mesh, *,
 
 def march_kerr_shardmap(metric, x0, p0, mesh: Mesh, *, dt, max_steps,
                         escape_radius, stepper="rk4", rtol=1e-4,
-                        far_r0=None, differentiable=False, interpret=False,
-                        segment=None):
-    """Per-device Kerr KERNEL launches under ``mesh`` — the production pod
-    path for the Boyer-Lindquist marchers (VERDICT round-3 next-step #5).
+                        far_r0=None, differentiable=False, segment=None):
+    """Per-device Kerr KERNEL launches under ``mesh`` — the production
+    multi-card path for the Boyer-Lindquist marchers.
 
     GSPMD cannot partition a ``pallas_call``, so each device gets its own
     kernel launch over its ray shard via ``shard_map``:
@@ -366,13 +361,13 @@ def march_kerr_shardmap(metric, x0, p0, mesh: Mesh, *, dt, max_steps,
         march_kerr_rk45_pallas (``'rk45'``);
       * ``differentiable=True``: the checkpointed-recompute custom-VJP
         pairs (integrate/kerr_adjoint.py / integrate/rk45_adjoint.py) with
-        backend='pallas' — Pallas forward AND Pallas backward run
+        backend='pallas' — the kernel forward and the XLA backward run
         per-shard, and the transpose of the replicated ``metric`` input
         psums the (m, a, q) cotangents across devices automatically.
 
-    ``interpret=True`` runs the kernels in interpreter mode (virtual-mesh
-    CPU testing).  Returns ``(x, p, sign, steps)`` on the original ray
-    count (the bundle is edge-padded to a devices multiple internally)."""
+    On the CPU the kernels run in interpret mode (virtual-mesh testing).
+    Returns ``(x, p, sign, steps)`` on the original ray count (the bundle
+    is edge-padded to a devices multiple internally)."""
     try:
         from jax import shard_map as _shard_map
     except ImportError:
@@ -383,7 +378,7 @@ def march_kerr_shardmap(metric, x0, p0, mesh: Mesh, *, dt, max_steps,
     n = x0.shape[0]
     x0p, _ = pad_to_multiple(x0, n_dev)
     p0p, _ = pad_to_multiple(p0, n_dev)
-    backend = "pallas_interpret" if interpret else "pallas"
+    backend = "pallas"
 
     def _march(metric, x0s, p0s):
         if differentiable:
@@ -403,13 +398,11 @@ def march_kerr_shardmap(metric, x0, p0, mesh: Mesh, *, dt, max_steps,
             from curvis_tpu.ops.march_pallas import march_kerr_rk45_pallas
             return march_kerr_rk45_pallas(
                 metric, x0s, p0s, dt0=dt, max_steps=max_steps,
-                escape_radius=escape_radius, rtol=rtol, atol=rtol * 1e-3,
-                interpret=interpret)
+                escape_radius=escape_radius, rtol=rtol, atol=rtol * 1e-3)
         from curvis_tpu.ops.march_pallas import march_kerr_pallas
         return march_kerr_pallas(
             metric, x0s, p0s, dt=dt, max_steps=max_steps,
-            escape_radius=escape_radius, far_r0=far_r0,
-            interpret=interpret)
+            escape_radius=escape_radius, far_r0=far_r0)
 
     out = _shard_map(_march, mesh=mesh,
                      in_specs=(P(), P(RAYS, None), P(RAYS, None)),
@@ -421,8 +414,7 @@ def march_kerr_shardmap(metric, x0, p0, mesh: Mesh, *, dt, max_steps,
 
 def render_kerr_shardmap(metric, cameras, bg: SphericalImage, mesh: Mesh, *,
                         dt, max_steps, escape_radius=None, stepper="rk4",
-                        rtol=1e-4, filtering="bilinear", far_r0=None,
-                        interpret=False):
+                        rtol=1e-4, filtering="bilinear", far_r0=None):
     """Kerr frames with per-device KERNEL launches (march_kerr_shardmap)
     -> (F, H, W, 3): the explicit-collectives twin of render_kerr_sharded
     for bare-shadow renders — march per shard, readout/shade on the
@@ -440,29 +432,32 @@ def render_kerr_shardmap(metric, cameras, bg: SphericalImage, mesh: Mesh, *,
     x, p, sign, steps = march_kerr_shardmap(
         metric, x0, p0, mesh, dt=dt, max_steps=max_steps,
         escape_radius=escape_radius, stepper=stepper, rtol=rtol,
-        far_r0=far_r0, interpret=interpret)
+        far_r0=far_r0)
     colors = _kerr_shade(metric, x0, p0, bg, x, p, sign, None, filtering,
                          False, None, None, None, None)
     return colors.reshape(len(cams), W, H, 3).transpose(0, 2, 1, 3)
 
 
 def make_kerr_train_step(mesh: Mesh, *, dt, max_steps, escape_radius,
-                         lr=0.05, use_pallas=False, stepper="rk4",
-                         rtol=1e-4, interpret=False):
+                         lr=0.05, use_pallas="auto", stepper="rk4",
+                         rtol=1e-4):
     """Differentiable Kerr/KN training step across the ray-sharded mesh:
     render -> L2 loss vs target frames -> grads w.r.t. the metric pytree
     (m, a, q) -> SGD update.  The loss mean over the sharded ray axis
     psums the parameter gradients across devices — the spin-recovery
     inverse problem at cluster scale (dryrun phase 4).
 
-    ``use_pallas=False`` (default) renders through GSPMD with the XLA
-    adjoint pair (render_kerr_sharded backend='adjoint') — correct
-    everywhere, but on a real pod the kernels idle.  ``use_pallas=True``
-    routes the march through :func:`march_kerr_shardmap`
-    (differentiable=True): per-device Pallas forward + Pallas
-    checkpointed-recompute backward — the production pod gradient path
-    (VERDICT round-3 next-step #5; ``interpret=True`` for virtual-mesh
-    testing, ``stepper='rk45'`` for the error-controlled pair)."""
+    ``use_pallas=True`` routes the march through
+    :func:`march_kerr_shardmap` (differentiable=True): per-device kernel
+    forward + XLA checkpointed-recompute backward — the production
+    multi-card gradient path (``stepper='rk45'`` for the error-controlled
+    pair; on the CPU the kernel runs in interpret mode).
+    ``use_pallas=False`` renders through GSPMD with the XLA adjoint pair
+    (render_kerr_sharded backend='adjoint').  ``'auto'`` follows the
+    dispatch rule (curvis_tpu/dispatch.py)."""
+    if use_pallas == "auto":
+        from curvis_tpu.dispatch import use_kernel
+        use_pallas = use_kernel()
 
     if use_pallas:
         from curvis_tpu.render.kerr import _kerr_shade, _spawn_kerr_rays
@@ -474,7 +469,7 @@ def make_kerr_train_step(mesh: Mesh, *, dt, max_steps, escape_radius,
             x, p, sign, _ = march_kerr_shardmap(
                 metric, x0, p0, mesh, dt=dt, max_steps=max_steps,
                 escape_radius=escape_radius, stepper=stepper, rtol=rtol,
-                differentiable=True, interpret=interpret)
+                differentiable=True)
             colors = _kerr_shade(metric, x0, p0, bg, x, p, sign, None,
                                  "bilinear", False, None, None, None, None)
             W, H = cams[0].resolution_x, cams[0].resolution_y

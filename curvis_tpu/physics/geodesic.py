@@ -1,7 +1,7 @@
 """Null-geodesic physics: metric components, frame fields, Hamiltonian RHS,
 photon spawn/readout, and metric-space inner products.
 
-TPU-native re-design of the computational core of the reference
+Data-parallel re-design of the computational core of the reference
 (/root/reference/src/metrics.rs:49-349 and src/vectors.rs): 4-vectors are plain
 ``(..., 4)`` jnp arrays; covariance is a *naming convention* enforced by tests,
 not a runtime tag (the reference's runtime `Covariance` checks, vectors.rs:13-35,

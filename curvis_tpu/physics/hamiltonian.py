@@ -38,14 +38,15 @@ def hamiltonian(metric, x, p):
     """H = (1/2) g^{mu nu} p_mu p_nu, batched over leading dims.
 
     Uses the metric's SoA ``inverse_components`` when available (the (N,4,4)
-    einsum pads the minor dims to 128 lanes on TPU — ~30x layout waste)."""
+    (N,4,4) einsum is the general fallback)."""
     if hasattr(metric, "inverse_components"):
         gtt, grr, gthth, gphph, gtph = metric.inverse_components(x)
         pt, pr_, pth, pph = (p[..., 0], p[..., 1], p[..., 2], p[..., 3])
         return 0.5 * (gtt * pt * pt + grr * pr_ * pr_ + gthth * pth * pth
                       + gphph * pph * pph) + gtph * pt * pph
     ginv = metric.inverse_metric(x)                    # (..., 4, 4)
-    return 0.5 * jnp.einsum("...ij,...i,...j->...", ginv, p, p)
+    return 0.5 * jnp.einsum("...ij,...i,...j->...", ginv, p, p,
+                            precision=jax.lax.Precision.HIGHEST)
 
 
 def geodesic_rhs(metric, x, p):
@@ -66,7 +67,8 @@ def _rhs_batched(metric, x, p):
                         gtph * pt + gphph * pph], axis=-1)
     else:
         ginv = metric.inverse_metric(x)                # (..., 4, 4)
-        dx = jnp.einsum("...ij,...j->...i", ginv, p)
+        dx = jnp.einsum("...ij,...j->...i", ginv, p,
+                        precision=jax.lax.Precision.HIGHEST)
     dp = -jax.grad(lambda X: jnp.sum(hamiltonian(metric, X, p)))(x)
     return dx, dp
 

@@ -1,10 +1,10 @@
-"""Reduced planar geodesic system — the TPU hot-loop formulation.
+"""Reduced planar geodesic system — the hot-loop formulation.
 
 In a spherically symmetric spacetime every null geodesic stays in the plane
 through the origin spanned by its initial position and direction.  The
 reference exploits this once, globally, to collapse the image to a 1-D
-function of the launch angle (systems.rs:345-384).  The TPU-native design
-applies it *per ray*: each photon is integrated in its own plane with the
+function of the launch angle (systems.rs:345-384).  This design applies it
+*per ray*: each photon is integrated in its own plane with the
 2-D state
 
     state  = (l, psi, p_l)        psi: in-plane angle from the launch radius
@@ -21,7 +21,7 @@ trigonometry** in the inner loop (vs sin/cos/pow of the general 3-D RHS).
 The 3-D escape direction is reconstructed afterwards by a single Rodrigues
 rotation of the camera's radial direction about the ray's plane normal.
 
-This is the formulation the Pallas kernel tiles over VMEM.
+This is the formulation the Pallas kernels march in registers.
 """
 from __future__ import annotations
 
@@ -89,8 +89,8 @@ def spawn_planar(metric: Metric, camera_position, directions_world) -> PlanarRay
     n = jnp.cross(r_hat, d)                       # |n| = sin(alpha)
     sin_a = jnp.sqrt(jnp.maximum(1.0 - cos_a * cos_a, 0.0))
     # Degenerate (radial) rays: any perpendicular plane works since b = 0.
-    # gate on the computed cross norm, not sin_a (see render/fast.py: TPU
-    # FMA rounding can make them disagree at d ~ -r_hat -> 0/0 NaN)
+    # gate on the computed cross norm, not sin_a (see render/fast.py: FMA
+    # rounding can make them disagree at d ~ -r_hat -> 0/0 NaN)
     n2 = jnp.sum(n * n, axis=-1)
     n_safe = jnp.where((n2 < 1e-12)[..., None], _any_perpendicular(r_hat), n)
     n_hat = normalize(n_safe)
@@ -282,7 +282,7 @@ def march_planar_tiled(metric: Metric, rays: PlanarRays, *, dt, max_steps,
 
         def body(c):
             l, psi, p_l, sign, steps, it = c
-            # ``unroll`` masked steps per loop iteration amortize the TPU
+            # ``unroll`` masked steps per loop iteration amortize the
             # while-loop per-iteration overhead (the dominant cost at small
             # tile sizes) without changing semantics: each sub-step masks on
             # the up-to-date per-ray escape state.

@@ -22,11 +22,16 @@ import jax
 import jax.numpy as jnp
 
 from curvis_tpu.camera.camera import Camera, pixel_rays_world
+from curvis_tpu.dispatch import use_kernel
 from curvis_tpu.env.spherical_image import SphericalImage, sample
 from curvis_tpu.geometry.rotations import frame_matrix, normalize, rotation_between
-from curvis_tpu.integrate.march import _on_tpu, march
+from curvis_tpu.integrate.march import march
 from curvis_tpu.physics import geodesic
 from curvis_tpu.physics.geodesic import TH, PH
+
+# the frame products run in full float32: a TF32 product (the GPU default)
+# errs by ~1e-3 rad, which the lensing map amplifies
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def spawn_pixel_photons(metric, camera: Camera, *, center_pixels=False,
@@ -71,13 +76,13 @@ def escape_world_directions(metric, res, *, frame_convention="frame",
     phi = res.x[..., PH]
     if frame_convention == "frame":
         F = frame_matrix(theta, phi)                                  # (N, 3, 3)
-        w = jnp.einsum("...ij,...j->...i", F, u)
+        w = jnp.einsum("...ij,...j->...i", F, u, precision=_HIGHEST)
     elif frame_convention == "minimal":
         from curvis_tpu.geometry.rotations import vector3_from_theta_phi
         R = rotation_between(
             jnp.broadcast_to(jnp.array([1.0, 0.0, 0.0], u.dtype), u.shape),
             vector3_from_theta_phi(theta, phi))
-        w = jnp.einsum("...ij,...j->...i", R, u)
+        w = jnp.einsum("...ij,...j->...i", R, u, precision=_HIGHEST)
     elif frame_convention == "identity":
         w = u
     else:
@@ -105,7 +110,7 @@ def render_direct(metric, camera: Camera, bg_positive: SphericalImage,
     """Render an (H, W, 3) image. Jit-compatible end to end.
 
     ``method``:
-      - 'planar'  : per-ray orbital-plane reduction (the TPU hot path —
+      - 'planar'  : per-ray orbital-plane reduction (the hot path —
                     3-state march, no trig; see physics/planar.py).
       - 'frame3d' : full 4-position/4-momentum march with frame-field
                     embedding (cross-validation path; supports the
@@ -136,12 +141,12 @@ def render_direct(metric, camera: Camera, bg_positive: SphericalImage,
                     escape_radius=escape_radius)
         elif differentiable or backend == "scan":
             res = pl.march_planar_scan(metric, rays, **kw)
-        elif backend == "pallas" or (backend == "auto" and _on_tpu()
+        elif backend == "pallas" or (backend == "auto"
+                                     and use_kernel(rays.l.dtype)
                                      and stepper == "euler"):
             from curvis_tpu.ops.march_pallas import march_planar_pallas
-            # camera pixel order is already cost-coherent per tile; skip the
-            # argsort (it costs more than the waste it removes — measured)
-            res = march_planar_pallas(metric, rays, sort=False, **kw)
+            # camera pixel order is already cost-coherent per block
+            res = march_planar_pallas(metric, rays, **kw)
         elif backend == "tiled" or planar_tile:
             res = pl.march_planar_tiled(metric, rays,
                                         tile=planar_tile or 65536, **kw)

@@ -538,14 +538,14 @@ def render_blackhole_disk(metric: Metric, camera: Camera,
                           bg: SphericalImage, *, dt=0.02, max_steps=100_000,
                           escape_radius=100.0, disk: DiskParams = None,
                           filtering="bilinear", backend="auto",
-                          stepper="euler", rtol=1e-5, interpret=False,
+                          stepper="euler", rtol=1e-5,
                           starlight_map=None, differentiable=None,
                           disk_theta=None):
     """(H, W, 3): lensed background + shadow + two-crossing accretion disk.
 
-    ``backend='auto'`` uses the Pallas disk kernel on TPU (tile-level early
-    exit), the XLA while-loop elsewhere.  Self-jitting: eager calls reuse a
-    cached compiled bundle (never run renderers eagerly on the remote TPU).
+    ``backend='auto'`` uses the Pallas disk kernel on the GPU (block-level
+    early exit), the XLA while-loop elsewhere (curvis_tpu/dispatch.py).
+    Self-jitting: eager calls reuse a cached compiled bundle.
 
     ``stepper='rk45'`` switches the march (thin-crossing AND volumetric)
     to the error-controlled DP5(4) pair with per-ray adaptive dt bounded
@@ -564,21 +564,19 @@ def render_blackhole_disk(metric: Metric, camera: Camera,
     surface adjoints (integrate/planar_surface_adjoint.py, round 5): exact
     checkpointed-recompute gradients through the thin-disk crossings or the
     volumetric radiative transfer, for BOTH steppers — 'scan' is the XLA
-    pair, 'adjoint' the Pallas kernel pair on TPU.  ``disk_theta`` (a dict
+    pair, 'adjoint' the kernel forward with the XLA backward.  ``disk_theta`` (a dict
     of traced scalars, see render/disk.DIFF_DISK_KEYS) overrides smooth
     disk parameters so d(image)/d(r_inner, kappa, brightness, ...) flows;
     with the volumetric model the overrides enter the march itself."""
     disk = disk or DiskParams()
     if backend == "auto":
-        from curvis_tpu.integrate.march import _on_tpu
-        backend = "pallas" if (_on_tpu() or interpret) else "while"
+        backend = _auto_backend(camera.position.dtype)
     return _render_disk_jit(metric, (camera,), bg, jnp.asarray(dt),
                             jnp.asarray(escape_radius), starlight_map,
                             disk_theta,
                             max_steps=max_steps,
                             disk=disk, filtering=filtering, backend=backend,
                             stepper=stepper, rtol=rtol,
-                            interpret=interpret,
                             differentiable=differentiable)[0]
 
 
@@ -586,7 +584,7 @@ def render_disk_frames_batched(metric: Metric, cameras, bg: SphericalImage,
                                *, dt=0.02, max_steps=100_000,
                                escape_radius=100.0, disk: DiskParams = None,
                                filtering="bilinear", backend="auto",
-                               stepper="euler", rtol=1e-5, interpret=False,
+                               stepper="euler", rtol=1e-5,
                                starlight_map=None, differentiable=None,
                                disk_theta=None):
     """Several disk frames in ONE device call -> (F, H, W, 3): the video
@@ -594,43 +592,43 @@ def render_disk_frames_batched(metric: Metric, cameras, bg: SphericalImage,
     render/fast.render_frames_batched).  ``starlight_map``: see
     render_blackhole_disk (precompute once per video)."""
     disk = disk or DiskParams()
+    cameras = tuple(cameras)
     if backend == "auto":
-        from curvis_tpu.integrate.march import _on_tpu
-        backend = "pallas" if (_on_tpu() or interpret) else "while"
-    return _render_disk_jit(metric, tuple(cameras), bg, jnp.asarray(dt),
+        backend = _auto_backend(cameras[0].position.dtype)
+    return _render_disk_jit(metric, cameras, bg, jnp.asarray(dt),
                             jnp.asarray(escape_radius), starlight_map,
                             disk_theta,
                             max_steps=max_steps,
                             disk=disk, filtering=filtering, backend=backend,
                             stepper=stepper, rtol=rtol,
-                            interpret=interpret,
                             differentiable=differentiable)
 
 
 def compute_starlight_map(metric: Metric, bg: SphericalImage,
                           disk: DiskParams, *, dt=0.02, max_steps=100_000,
                           escape_radius=100.0, filtering="bilinear",
-                          backend="auto", stepper="euler", rtol=1e-5,
-                          interpret=False):
+                          backend="auto", stepper="euler", rtol=1e-5):
     """The camera-independent starlight map for ``disk`` around ``metric``
     under sky ``bg`` — precompute once and pass as ``starlight_map=`` to
     the disk renderers to amortize the illumination integral across a
-    whole video (it is by far the dominant part of the starlight overhead:
-    ~90 ms vs ~1 ms of per-frame lookups at 512x288).  Jitted; reuses the
-    same march backend/stepper knobs as the renderers."""
+    whole video (it is by far the dominant part of the starlight overhead).
+    Jitted; reuses the same march backend/stepper knobs as the renderers."""
     if backend == "auto":
-        from curvis_tpu.integrate.march import _on_tpu
-        backend = "pallas" if (_on_tpu() or interpret) else "while"
+        backend = _auto_backend(bg.texture.dtype)
     return _starlight_map_jit(metric, bg, jnp.asarray(dt),
                               jnp.asarray(escape_radius),
                               max_steps=max_steps, disk=disk,
                               filtering=filtering, backend=backend,
-                              stepper=stepper, rtol=rtol,
-                              interpret=interpret)
+                              stepper=stepper, rtol=rtol)
+
+
+def _auto_backend(dtype):
+    from curvis_tpu.dispatch import use_kernel
+    return "pallas" if use_kernel(dtype) else "while"
 
 
 def _starlight_map_impl(metric, bg, dt, escape_radius, *, max_steps, disk,
-                        filtering, backend, stepper, rtol, interpret):
+                        filtering, backend, stepper, rtol):
     from curvis_tpu.render.starlight import compute_disk_starlight_map
     n_r_s, n_phi_s = disk.starlight_grid
     return compute_disk_starlight_map(
@@ -640,19 +638,19 @@ def _starlight_map_impl(metric, bg, dt, escape_radius, *, max_steps, disk,
         filtering=filtering, backend=backend, stepper=stepper, rtol=rtol,
         blueshift=disk.starlight_blueshift,
         shadow_params=disk if disk.starlight_self_shadow else None,
-        interpret=interpret, two_sheet=disk.starlight_two_sheet)
+        two_sheet=disk.starlight_two_sheet)
 
 
 _starlight_map_jit = jax.jit(
     lambda *a, **k: _starlight_map_impl(*a, **k),
     static_argnames=("max_steps", "disk", "filtering", "backend",
-                     "stepper", "rtol", "interpret"))
+                     "stepper", "rtol"))
 
 
 def _render_disk_impl(metric, cameras, bg, dt, escape_radius, smap=None,
                       disk_theta=None, *,
                       max_steps, disk, filtering, backend, stepper="euler",
-                      rtol=1e-5, interpret=False, differentiable=None):
+                      rtol=1e-5, differentiable=None):
     cams = list(cameras)
     W, H = cams[0].resolution_x, cams[0].resolution_y
     if any((c.resolution_x, c.resolution_y) != (W, H) for c in cams):
@@ -686,7 +684,7 @@ def _render_disk_impl(metric, cameras, bg, dt, escape_radius, smap=None,
     scatter_block = None
     if disk.starlight and vol:
         # in-gas single scattering of the lensed sky (VERDICT round-4 #3a):
-        # the starlight map's radial profile rides the SMEM row as a
+        # the starlight map's radial profile rides the scalar row as a
         # monomial tail; the kernels add trans * rho * kappa_s albedo_c
         # Ebar_c per accepted step
         if differentiable and smap is None:
@@ -700,17 +698,15 @@ def _render_disk_impl(metric, cameras, bg, dt, escape_radius, smap=None,
         if smap is None:
             smap = _starlight_map_impl(
                 metric, bg, dt, escape_radius, max_steps=max_steps,
-                disk=disk, filtering=filtering,
-                backend="while" if backend == "pallas" and interpret
-                else backend,
-                stepper=stepper, rtol=rtol, interpret=interpret)
+                disk=disk, filtering=filtering, backend=backend,
+                stepper=stepper, rtol=rtol)
         scatter_block = starlight_scatter_block(
             smap, disk_view(disk, disk_theta), l.dtype)
     if differentiable:
         # round 5: the planar surface adjoints — exact checkpointed-
         # recompute gradients through thin-disk crossings / volumetric
         # transfer for both steppers ('scan' = XLA pair, 'adjoint' =
-        # Pallas kernel pair); traced disk params ride disk_theta
+        # kernel forward + XLA backward); traced disk params ride disk_theta
         from curvis_tpu.integrate.planar_surface_adjoint import (
             march_planar_disk_adjoint, march_planar_vol_adjoint)
         mb = "xla" if differentiable == "scan" else "auto"
@@ -740,13 +736,11 @@ def _render_disk_impl(metric, cameras, bg, dt, escape_radius, smap=None,
             if vol:
                 res, tau, em = march_planar_rk45_pallas(
                     metric, rays, c1=c1, c2=c2, nz=nz, vol_disk=disk,
-                    scatter_block=scatter_block,
-                    interpret=interpret, **kw45)
+                    scatter_block=scatter_block, **kw45)
             else:
                 res, h1, h2 = march_planar_rk45_pallas(
                     metric, rays, c1=c1, c2=c2,
-                    disk=(disk.r_inner, disk.r_outer),
-                    interpret=interpret, **kw45)
+                    disk=(disk.r_inner, disk.r_outer), **kw45)
         else:
             from curvis_tpu.integrate.rk45 import march_planar_rk45
             if vol:
@@ -763,7 +757,7 @@ def _render_disk_impl(metric, cameras, bg, dt, escape_radius, smap=None,
         res, tau, em = march_planar_disk_volumetric_pallas(
             metric, rays, c1, c2, nz, dt=dt, max_steps=max_steps,
             escape_radius=escape_radius, disk=disk,
-            scatter_block=scatter_block, interpret=interpret)
+            scatter_block=scatter_block)
     elif vol:
         res, tau, em = march_planar_disk_volumetric(
             metric, rays, c1, c2, nz, dt=dt, max_steps=max_steps,
@@ -774,7 +768,7 @@ def _render_disk_impl(metric, cameras, bg, dt, escape_radius, smap=None,
         res, h1, h2 = march_planar_disk_pallas(
             metric, rays, c1, c2, dt=dt, max_steps=max_steps,
             escape_radius=escape_radius, r_inner=disk.r_inner,
-            r_outer=disk.r_outer, interpret=interpret)
+            r_outer=disk.r_outer)
     else:
         res, h1, h2 = march_planar_disk(
             metric, rays, c1, c2, dt=dt, max_steps=max_steps,
@@ -805,7 +799,7 @@ def _render_disk_impl(metric, cameras, bg, dt, escape_radius, smap=None,
             smap = _starlight_map_impl(
                 metric, bg, dt, escape_radius, max_steps=max_steps,
                 disk=disk, filtering=filtering, backend=backend,
-                stepper=stepper, rtol=rtol, interpret=interpret)
+                stepper=stepper, rtol=rtol)
         albedo = jnp.asarray(shade.albedo, l.dtype)[None, :]
         phi1, side1 = hit_phi_side(h1[0], h1[2], b, c1, c2, r_hat, e2)
         phi2, side2 = hit_phi_side(h2[0], h2[2], b, c1, c2, r_hat, e2)
@@ -825,4 +819,4 @@ def _render_disk_impl(metric, cameras, bg, dt, escape_radius, smap=None,
 _render_disk_jit = jax.jit(
     lambda *a, **k: _render_disk_impl(*a, **k),
     static_argnames=("max_steps", "disk", "filtering", "backend",
-                     "stepper", "rtol", "interpret", "differentiable"))
+                     "stepper", "rtol", "differentiable"))

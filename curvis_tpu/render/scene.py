@@ -4,7 +4,7 @@ Bundles a metric, the two background spheres and a camera, and exposes the
 reference's rendering entry points under familiar names:
 
   - ``render_image``          : per-pixel integration (systems.rs:307-330,
-                                here the batched TPU direct renderer)
+                                here the batched direct renderer)
   - ``render_image_efficient``: the 1-D symmetry reduction
                                 (systems.rs:333-527)
   - ``compute_escape_angle(s)``: deflection-function probes

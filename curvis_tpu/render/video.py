@@ -194,7 +194,7 @@ def _render_frames_device_batched(metric, path, bg_positive, bg_negative,
         from curvis_tpu.render.disk import (compute_starlight_map,
                                             render_disk_frames_batched)
         # the starlight map is camera-independent: one compute for the
-        # whole video (vs ~90 ms per batch recomputed inside the call)
+        # whole video (instead of one per batch inside the call)
         smap = compute_starlight_map(
             metric, bg_positive, disk, dt=dt, max_steps=max_steps,
             escape_radius=escape_radius, filtering=filtering) \

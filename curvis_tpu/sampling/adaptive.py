@@ -3,7 +3,7 @@
 Faithful re-implementation of the reference's `doubly_sample_function`
 (/root/reference/src/sampling.rs:46-124) with one structural change: the
 expensive function is evaluated in *batches* (a whole refinement generation of
-midpoints per call) so the geodesic marches run as one jitted TPU bundle per
+midpoints per call) so the geodesic marches run as one jitted device bundle per
 iteration instead of one CPU trajectory at a time.  The refinement bookkeeping
 (Shoelace-area convergence scores, midpoint insertion, NaN cleaning) runs on
 the host in numpy and matches the reference step for step, including its

@@ -1,4 +1,4 @@
-"""Numerical-debug helpers (SURVEY.md section 5: the TPU analogue of the
+"""Numerical-debug helpers (SURVEY.md section 5: the accelerator analogue of the
 reference's RUST_BACKTRACE=full, main.rs:211, is NaN checking + determinism
 discipline)."""
 from __future__ import annotations

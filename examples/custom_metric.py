@@ -86,23 +86,19 @@ def main(argv=None):
 
     # ------------------------------------------------------------------
     # Kernel-speed path: compile the user metric into a Chebyshev table
-    # and march it through the Pallas kernel (backend='pallas' on TPU;
-    # 'tiled' XLA here runs the identical table algebra).  The fit error
-    # is measured, not assumed.  Measured on one v5e chip (Ellis-bench
-    # config, 1024^2, 4-frame batch): degree-16 Horner 20.0 Mrays/s /
-    # 2.8e-4 fit err; degree-20 17.8 / 1.2e-4; degree-24 Clenshaw 12.2 /
-    # 3.8e-5 — dial degree/tol to taste.  (Hand-written kinds: Ellis
-    # 42.5, DNEG 20.2.)
+    # and march it through the Pallas kernel (the 'auto' backend on the
+    # GPU; the XLA 'tiled' march elsewhere runs the identical table
+    # algebra).  The fit error is measured, not assumed; a higher degree
+    # fits better and costs more flops per step — dial degree/tol to
+    # taste.
     # ------------------------------------------------------------------
     tab, rep = cv.tabulate_metric(metric, degree=16, tol=5e-4)
     print(f"tabulated: degree={rep['degree']} basis={rep['basis']} "
           f"err(1/r^2)={rep['err_inv_rel']:.1e} "
           f"err(r'/r^3)={rep['err_dr3_rel']:.1e}")
-    from curvis_tpu.integrate.march import _on_tpu
-    backend = "pallas" if _on_tpu() else "tiled"
     img_t = render_planar_fast(tab, cam, bg_p, bg_n, dt=0.05,
                                max_steps=40_000, escape_radius=100.0,
-                               filtering="bilinear", backend=backend)
+                               filtering="bilinear")
     out_t = outdir / "custom_bell_wormhole_tabulated.png"
     cv.save_image(np.asarray(img_t), out_t)
     mm = float((np.abs(np.asarray(img_t) - np.asarray(img)).max(-1)

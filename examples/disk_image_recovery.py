@@ -14,9 +14,9 @@ photon-ring foldovers (the round-2 physics note), so the harness uses
 curvis_tpu.fit's vmapped multi-start — several initializations explore
 the basin set in one compiled program.
 
-Run on TPU (backend='adjoint' uses the Pallas forward + Pallas
-checkpointed-recompute backward); CPU works with backend='scan' at the
-reduced preset (--fast).
+Run on the GPU (backend='adjoint': the Pallas kernel forward + the XLA
+checkpointed-recompute backward); --fast is a small float64 preset with
+backend='scan' that any device runs.
 """
 import argparse
 import dataclasses
@@ -27,14 +27,13 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--fast", action="store_true",
-                    help="small CPU-friendly preset")
+                    help="small float64 preset")
     ap.add_argument("--backend", default=None,
-                    help="scan (XLA pair) | adjoint (Pallas pair, TPU)")
+                    help="scan (XLA pair) | adjoint (kernel forward)")
     args = ap.parse_args()
 
     import jax
     if args.fast:
-        jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     import curvis_tpu as cv

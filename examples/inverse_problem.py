@@ -3,13 +3,13 @@
 descent THROUGH the ray march — the axis the CPU reference cannot offer
 (its Rust tracer is not differentiable; /root/reference has no analogue).
 
-    python examples/inverse_problem.py [outdir] [--tpu]
+    python examples/inverse_problem.py [outdir] [--f64]
 
-Four demos; CPU f64 by default (deterministic; a TPU is not required).
-``--tpu`` runs on the attached chip in f32 with the round-3 Pallas adjoint
-pair (forward = production kernels, backward = checkpointed recompute,
-integrate/kerr_adjoint.py) — the same recoveries at chip speed; per-step
-wall clock is printed either way.
+Four demos, on whatever device JAX finds.  float32 by default: on the GPU
+the adjoint runs the production kernels forward and the checkpointed
+recompute backward (integrate/kerr_adjoint.py).  ``--f64`` runs the XLA
+paths in double precision (deterministic); per-step wall clock is printed
+either way.
 
 1. Ellis wormhole: recover the throat radius rho from a target image
    (adjoint planar march; tests/test_gradients.py pins the gradients
@@ -33,23 +33,22 @@ import numpy as np
 
 def main(argv=None):
     argv = list(argv or [])
-    use_tpu = "--tpu" in argv
-    if use_tpu:
-        argv.remove("--tpu")
+    use_f64 = "--f64" in argv
+    if use_f64:
+        argv.remove("--f64")
     outdir = Path(argv[0]) if argv else Path(__file__).parent / "out"
     outdir.mkdir(parents=True, exist_ok=True)
 
     import jax
-    if not use_tpu:
-        jax.config.update("jax_platforms", "cpu")
+    if use_f64:
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     import curvis_tpu as cv
     from curvis_tpu.metrics.kerr import KerrMetric
     from curvis_tpu.render.kerr import render_kerr
 
-    fdt = jnp.float32 if use_tpu else jnp.float64
-    print(f"mode: {'TPU f32, Pallas adjoint pair' if use_tpu else 'CPU f64'}")
+    fdt = jnp.float64 if use_f64 else jnp.float32
+    print(f"mode: {jax.default_backend()} {jnp.dtype(fdt).name}")
 
     def timed_steps(vg, x, step, iters, report):
         """Descent loop with median per-step wall clock (value fetched as a
@@ -97,7 +96,7 @@ def main(argv=None):
                                 differentiable="adjoint", dt=0.05,
                                 max_steps=2000, escape_radius=20.0)
 
-    render_rho = jax.jit(render_rho)     # never render eagerly on the TPU
+    render_rho = jax.jit(render_rho)
     rho_true, rho = jnp.asarray(1.6, fdt), jnp.asarray(1.0, fdt)
     target = render_rho(rho_true)
     start = render_rho(rho)

@@ -8,7 +8,7 @@ Produces:
     gargantua_blackbody.png   Schwarzschild, Planck-colored thin disk —
                               the Doppler-boosted side is physically bluer
     kerr_gargantua.png        a=0.9 Kerr: D-shaped shadow + frame-dragged
-                              blackbody disk (Pallas RK4 kernel on TPU)
+                              blackbody disk (Pallas RK4 kernel on the GPU)
     kerr_shadow.png           bare high-spin shadow against a starfield
 """
 import argparse

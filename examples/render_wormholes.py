@@ -58,7 +58,6 @@ def main(argv=None):
 
     import jax
     if args.f64:
-        jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     import curvis_tpu as cv

@@ -27,9 +27,8 @@ the geodesic march:
 Measured result (this script, CPU f64): median |r_fit - r_true| / r_true
 ~ 1.2e-4 over the probed range l in [-6, 6], throat radius to 0.2%.
 
-The same loss runs on TPU at kernel speed via the Pallas adjoint pair
-(integrate/adjoint.py backend='pallas' — the table coefficients ride theta
-per-lane; see BASELINE.md, 6.1x over the XLA pair at 128x72).
+The same loss runs at kernel speed on the GPU via the adjoint's kernel
+forward (integrate/adjoint.py backend='pallas').
 
 Run:  python examples/shape_recovery.py        (~3 min CPU; writes
       examples/out/shape_recovery.png)
@@ -46,7 +45,6 @@ OUT = Path(__file__).parent / "out"
 
 def main(argv=None):
     import jax
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     import optax

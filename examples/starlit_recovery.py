@@ -18,8 +18,9 @@ once; none of the fitted knobs enter its construction — albedo and
 kappa_s are applied in the scatter block, not the map), so the gradients
 are exact for this parameterization.
 
-Run on TPU (backend='adjoint': Pallas forward + checkpointed-recompute
-Pallas backward); CPU works with --fast (backend='scan', f64).
+Run on the GPU (backend='adjoint': the kernel forward + the XLA
+checkpointed-recompute backward); --fast is a small float64 preset
+(backend='scan').
 """
 import argparse
 
@@ -29,12 +30,11 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--fast", action="store_true",
-                    help="small CPU-friendly preset (f64, backend='scan')")
+                    help="small preset (f64, backend='scan')")
     args = ap.parse_args()
 
     import jax
     if args.fast:
-        jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     import curvis_tpu as cv

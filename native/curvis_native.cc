@@ -1,6 +1,6 @@
 // curvis_native — C++ runtime components of the curvis_tpu framework.
 //
-// The TPU compute path is JAX/XLA/Pallas; this library provides the native
+// The accelerator compute path is JAX/XLA/Pallas; this library provides the native
 // host-runtime pieces around it (the role the reference's Rust plays outside
 // the inner math):
 //
@@ -11,7 +11,7 @@
 //   cn_doubly_sample    the adaptive-sampling driver loop
 //                       (sampling.rs:46-124 semantics): C++ owns the
 //                       refinement bookkeeping and calls back into a
-//                       batched evaluator (a jitted TPU bundle on the
+//                       batched evaluator (a jitted device bundle on the
 //                       Python side)
 //
 // Pure C ABI (ctypes); no Python.h.  Build: make -C native (g++ -O3 -shared).
@@ -282,7 +282,7 @@ void cn_render_naive_f64(int kind, const double* params, const double* cam,
 // ---------------------------------------------------------------------------
 // Adaptive sampling driver (sampling.rs:46-124 semantics, quirks included).
 // The evaluator callback receives a batch of alphas and writes escapes/signs;
-// on the Python side it is a jitted TPU bundle.
+// on the Python side it is a jitted device bundle.
 // ---------------------------------------------------------------------------
 typedef void (*cn_eval_fn)(const double* alphas, int n, double* out_e,
                            double* out_s, void* ctx);

@@ -98,8 +98,7 @@ def test_rn_pallas_interpret_matches_while():
     rays = pl.PlanarRays(*(a.astype(jnp.float32) for a in rays))
     kw = dict(dt=0.02, max_steps=40_000, escape_radius=60.0)
     a = pl.march_planar_while(metric, rays, **kw)
-    b = march_planar_pallas(metric, rays, interpret=True, sort=False,
-                            tile_rows=8, **kw)
+    b = march_planar_pallas(metric, rays, **kw)
     np.testing.assert_array_equal(np.asarray(a.sign), np.asarray(b.sign))
     escaped = np.asarray(a.sign) == 1
     assert np.abs(np.asarray(a.psi) - np.asarray(b.psi))[escaped].max() < 1e-3
@@ -174,8 +173,8 @@ def test_kn_pallas_matches_xla():
     a = ham.march_hamiltonian(metric, x0, p0,
                               capture_radius=float(metric.capture_radius),
                               **kw)
-    x, p, sign, steps = march_kerr_pallas(metric, x0, p0, interpret=True,
-                                          tile_rows=8, **kw)
+    x, p, sign, steps = march_kerr_pallas(metric, x0, p0,
+                                          **kw)
     np.testing.assert_array_equal(np.asarray(a.sign), np.asarray(sign))
     ok = np.asarray(a.sign) > 0
     np.testing.assert_allclose(np.asarray(a.x)[ok, 1:],

@@ -120,7 +120,7 @@ def test_disk_pallas_kernel_interpret_matches_while():
     res_a, (h1a, p1a, s1a), (h2a, p2a, s2a) = march_planar_disk(
         metric, rays32, c1, c2, **kw)
     res_b, (h1b, p1b, s1b), (h2b, p2b, s2b) = march_planar_disk_pallas(
-        metric, rays32, c1, c2, interpret=True, tile_rows=8, **kw)
+        metric, rays32, c1, c2, **kw)
     np.testing.assert_array_equal(np.asarray(res_a.sign),
                                   np.asarray(res_b.sign))
     hit_a = np.asarray(h1a) > 0
@@ -363,8 +363,8 @@ def test_volumetric_pallas_kernel_interpret_matches_while():
         res_a, tau_a, em_a = march_planar_disk_volumetric(
             metric, rays, c1, c2, nz, params=disk, **kw)
         res_b, tau_b, em_b = march_planar_disk_volumetric_pallas(
-            metric, rays, c1, c2, nz, disk=disk, interpret=True,
-            tile_rows=8, **kw)
+            metric, rays, c1, c2, nz, disk=disk,
+            **kw)
         np.testing.assert_array_equal(np.asarray(res_a.sign),
                                       np.asarray(res_b.sign))
         np.testing.assert_allclose(np.asarray(tau_a), np.asarray(tau_b),

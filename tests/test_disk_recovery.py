@@ -4,7 +4,7 @@ produce — an EHT-like picture of the accretion disk — via the volumetric
 surface adjoint (everything smooth: no crossing gates in the loss path).
 
 Full 5-parameter (M, a, inclination, r_in, r_out) multi-start recovery is
-examples/disk_image_recovery.py (TPU-scale); this CPU test pins the
+examples/disk_image_recovery.py (GPU-scale); this CPU test pins the
 mechanism on the (spin, inner-edge) pair, which is the physically
 canonical disk measurement (ISCO radius tracks spin).
 """

@@ -301,10 +301,9 @@ def test_joint_mass_spin_recovery_two_viewpoints():
 
 
 # ---------------------------------------------------------------------------
-# Round-3: Pallas-speed gradients (VERDICT round-2 next-step #1) — the
-# adjoint pair whose forward is the production Pallas kernel and whose
-# backward is the checkpointed-recompute kernel pair (interpret-mode here;
-# the on-chip Mosaic compile is exercised by bench.py's parity gates).
+# Kernel-speed gradients (VERDICT round-2 next-step #1) — the adjoint pair
+# whose forward is the production Pallas kernel (interpret mode here) and
+# whose backward is the XLA checkpointed recompute.
 # ---------------------------------------------------------------------------
 
 def _kerr_smooth_scene():
@@ -349,9 +348,9 @@ def test_kerr_adjoint_matches_scan_smooth_regime():
 
 
 def test_kerr_adjoint_pallas_backward_matches_xla():
-    """The Pallas checkpointed-recompute kernel pair (interpret) computes
-    the identical adjoint to the XLA backward — Kerr and Kerr-Newman (q
-    gradient)."""
+    """backend='pallas' (kernel forward, interpret mode, + the XLA
+    checkpointed-recompute backward) computes the identical adjoint to the
+    all-XLA pair — Kerr and Kerr-Newman (q gradient)."""
     from curvis_tpu.integrate.kerr_adjoint import march_kerr_adjoint
     from curvis_tpu.metrics.kerr import KerrMetric, KerrNewmanMetric
     from curvis_tpu.physics import hamiltonian as ham
@@ -378,13 +377,13 @@ def test_kerr_adjoint_pallas_backward_matches_xla():
 
     mk_kerr = lambda a: KerrMetric(m=jnp.asarray(1.0), a=a)        # noqa
     gx = jax.grad(mkloss("xla", mk_kerr))(jnp.asarray(0.8))
-    gp = jax.grad(mkloss("pallas_interpret", mk_kerr))(jnp.asarray(0.8))
+    gp = jax.grad(mkloss("pallas", mk_kerr))(jnp.asarray(0.8))
     np.testing.assert_allclose(float(gp), float(gx), rtol=1e-12)
 
     mk_kn = lambda q: KerrNewmanMetric(m=jnp.asarray(1.0),         # noqa
                                        a=jnp.asarray(0.6), q=q)
     gxq = jax.grad(mkloss("xla", mk_kn))(jnp.asarray(0.4))
-    gpq = jax.grad(mkloss("pallas_interpret", mk_kn))(jnp.asarray(0.4))
+    gpq = jax.grad(mkloss("pallas", mk_kn))(jnp.asarray(0.4))
     np.testing.assert_allclose(float(gpq), float(gxq), rtol=1e-12)
 
 
@@ -416,8 +415,8 @@ def test_kerr_adjoint_chaotic_regime_is_finite():
 
 
 def test_planar_adjoint_pallas_pair_matches_scan(rng):
-    """Planar Pallas forward + Pallas checkpointed-recompute backward
-    (interpret) vs the exact checkpointed scan, Ellis and DNEG.  Forward
+    """Planar Pallas forward (interpret) + XLA checkpointed-recompute
+    backward vs the exact checkpointed scan, Ellis and DNEG.  Forward
     values agree to ~1e-7 (the DNEG kernel's degree-6 _atan_poly vs
     jnp.arctan — 1.2e-6 abs fit error, see march_pallas.py — keeps this
     from being bitwise); gradients to 1e-6."""
@@ -441,7 +440,7 @@ def test_planar_adjoint_pallas_pair_matches_scan(rng):
         return loss
 
     pallas_marcher = lambda m, r, **k: march_planar_adjoint_rays(   # noqa
-        m, r, backend="pallas_interpret", **k)
+        m, r, backend="pallas", **k)
     for mk, v in [(lambda r: EllisMetric(rho=r), 1.0),
                   (lambda m: InterstellarMetric(m=m, a=jnp.asarray(1e-4),
                                                 rho=jnp.asarray(1.0)), 0.1)]:
@@ -458,12 +457,11 @@ def test_planar_adjoint_pallas_pair_matches_scan(rng):
             np.testing.assert_allclose(float(a), float(b), rtol=2e-6)
 
 def test_table_metric_adjoint_pallas_matches_xla():
-    """Round-3 closure of the table docstring's caveat: the Pallas adjoint
-    pair now differentiates TABULATED user metrics — per-lane coefficient
-    broadcasts in theta, so the segment VJP yields cotangents of the
-    Chebyshev table itself (d image / d shape-of-r(l) at kernel speed).
-    Pallas-interpret vs the XLA checkpointed recompute on every leaf
-    (c1, c2, s), plus a finite-difference anchor on one coefficient."""
+    """The adjoint differentiates TABULATED user metrics — the segment VJP
+    yields cotangents of the Chebyshev table itself (d image /
+    d shape-of-r(l)).  Kernel forward (interpret) + XLA backward vs the
+    all-XLA pair on every leaf (c1, c2, s), plus a finite-difference anchor
+    on one coefficient."""
     from curvis_tpu.camera.camera import pixel_rays_world
     from curvis_tpu.integrate.adjoint import march_planar_adjoint_rays
     from curvis_tpu.metrics.table import tabulate_metric
@@ -487,7 +485,7 @@ def test_table_metric_adjoint_pallas_matches_xla():
         return loss
 
     vx, gx = jax.value_and_grad(mkloss("xla"))(tab0)
-    vp, gp = jax.value_and_grad(mkloss("pallas_interpret"))(tab0)
+    vp, gp = jax.value_and_grad(mkloss("pallas"))(tab0)
     np.testing.assert_allclose(float(vx), float(vp), rtol=1e-12)
     np.testing.assert_allclose(np.asarray(gx.c1), np.asarray(gp.c1),
                                rtol=1e-6, atol=1e-12)
@@ -502,7 +500,7 @@ def test_table_metric_adjoint_pallas_matches_xla():
     eps = 1e-6
     def at(dv):
         c1 = tab0.c1.at[k].add(dv)
-        return float(mkloss("pallas_interpret")(
+        return float(mkloss("pallas")(
             dataclasses.replace(tab0, c1=c1)))
     fd = (at(eps) - at(-eps)) / (2 * eps)
     np.testing.assert_allclose(float(np.asarray(gp.c1)[k]), fd, rtol=2e-4)
@@ -600,31 +598,26 @@ def test_shape_recovery_from_deflection_data():
     np.testing.assert_allclose(r_fit[1] - r_fit[0], 0.1376, atol=0.03)
 
 
-def test_ckpt_pallas_degenerate_inputs():
-    """max_steps=0 (and n=0) must return the exact degenerate gradient
-    (d_y0 = cot, d_theta = 0) like the XLA twin, not unwritten buffers —
-    and the steps mask must ride a dtype that represents its integer
-    range exactly regardless of the state dtype."""
+def test_ckpt_degenerate_inputs():
+    """max_steps=0 (and n=0) return the exact degenerate gradient of the
+    checkpointed recompute (d_y0 = cot, d_theta = 0)."""
     import jax.numpy as jnp
-    from curvis_tpu.ops.ckpt_adjoint_pallas import ckpt_adjoint_backward_pallas
+    from curvis_tpu.integrate.ckpt import ckpt_adjoint_backward
 
-    def mk(params_ref):
-        def step(theta, y):
-            return (y[0] + theta[0] * 0.1,)
-        return step
+    def step(theta, y):
+        return (y[0] + theta[0] * 0.1,)
 
-    params = jnp.zeros((1, 1))
     y0 = (jnp.arange(6.0),)
     theta = (jnp.ones(6),)
-    steps = jnp.full(6, 0.0)
+    steps = jnp.zeros(6, jnp.int32)
     cot = (jnp.linspace(1.0, 2.0, 6),)
-    lam, g = ckpt_adjoint_backward_pallas(mk, params, y0, theta, steps, cot,
-                                          max_steps=0, interpret=True)
+    g, lam = ckpt_adjoint_backward(step, theta, y0, steps, cot,
+                                   max_steps=0, segment=4)
     np.testing.assert_array_equal(np.asarray(lam[0]), np.asarray(cot[0]))
     np.testing.assert_array_equal(np.asarray(g[0]), np.zeros(6))
 
     empty = jnp.zeros((0,))
-    lam0, g0 = ckpt_adjoint_backward_pallas(mk, params, (empty,), (empty,),
-                                            empty, (empty,), max_steps=4,
-                                            interpret=True)
+    g0, lam0 = ckpt_adjoint_backward(step, (empty,), (empty,),
+                                     jnp.zeros((0,), jnp.int32), (empty,),
+                                     max_steps=4, segment=2)
     assert lam0[0].shape == (0,) and g0[0].shape == (0,)

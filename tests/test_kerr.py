@@ -182,8 +182,7 @@ def test_kerr_pallas_kernel_matches_autodiff():
                                 capture_radius=float(metric.capture_radius),
                                 **kw)
     x_k, p_k, sign_k, steps_k = march_kerr_pallas(metric, x0, p0,
-                                                  interpret=True,
-                                                  tile_rows=1, **kw)
+                                                  **kw)
     np.testing.assert_array_equal(np.asarray(res.sign), np.asarray(sign_k))
     np.testing.assert_array_equal(np.asarray(res.steps), np.asarray(steps_k))
     esc = np.asarray(res.sign) == 1
@@ -198,7 +197,6 @@ def test_kerr_pallas_kernel_matches_autodiff():
                                              r_outer=20.0, **kw)
     _, _, sk, _, (h1k, h2k) = march_kerr_pallas(metric, x0, p0,
                                                 disk=(3.0, 20.0),
-                                                interpret=True, tile_rows=1,
                                                 **kw)
     np.testing.assert_array_equal(np.asarray(sd), np.asarray(sk))
     for comp in range(3):                     # r, phi, side per hit
@@ -212,11 +210,10 @@ def test_kerr_pallas_kernel_matches_autodiff():
 
 
 def test_kerr_pallas_odd_step_cap_exact():
-    """Odd max_steps keeps unroll >= 2 (Mosaic relayout bug at unroll=1) and
-    the per-ray steps gate makes the cap exact: capped rays stop at exactly
-    max_steps with sign 0, matching the XLA marcher ray for ray (ADVICE
-    round-2)."""
-    from curvis_tpu.ops.march_pallas import march_kerr_pallas
+    """Odd max_steps: the per-ray steps gate makes the cap exact — capped
+    rays stop at exactly max_steps with sign 0, matching the XLA marcher
+    ray for ray (ADVICE round-2)."""
+    from curvis_tpu.ops import march_pallas as mp
     metric = make_kerr(m=1.0, a=0.9)
     rng = np.random.default_rng(1)
     n = 64
@@ -230,8 +227,7 @@ def test_kerr_pallas_odd_step_cap_exact():
     res = ham.march_hamiltonian(metric, x0, p0,
                                 capture_radius=float(metric.capture_radius),
                                 **kw)
-    _, _, sign_k, steps_k = march_kerr_pallas(metric, x0, p0, interpret=True,
-                                              tile_rows=1, unroll=8, **kw)
+    _, _, sign_k, steps_k = mp.march_kerr_pallas(metric, x0, p0, **kw)
     sign_k, steps_k = np.asarray(sign_k), np.asarray(steps_k)
     np.testing.assert_array_equal(np.asarray(res.sign), sign_k)
     np.testing.assert_array_equal(np.asarray(res.steps), steps_k)
@@ -263,8 +259,7 @@ def test_kerr_pallas_bardeen_thresholds():
         p = ham.spawn_photon(metric, x, dd)
         _, _, sign, _ = march_kerr_pallas(metric, x, p, dt=0.05,
                                           max_steps=200_000,
-                                          escape_radius=1.05 * l0,
-                                          interpret=True, tile_rows=1)
+                                          escape_radius=1.05 * l0)
         return int(sign[0])
 
     b_pro = float(metric.critical_impact_parameter(prograde=True))
@@ -313,8 +308,7 @@ def test_polar_axis_camera_robustness(rng):
     assert (sign == 0).mean() < 0.002          # and no stuck rays
     from curvis_tpu.ops.march_pallas import march_kerr_pallas
     _, _, sk, _ = march_kerr_pallas(metric, x0, p0, dt=0.1,
-                                    max_steps=20_000, escape_radius=50.0,
-                                    interpret=True, tile_rows=8)
+                                    max_steps=20_000, escape_radius=50.0)
     sk = np.asarray(sk)
     assert (sk == 3).mean() < 0.002
     assert (sign == sk).mean() > 0.99          # backends agree per ray
@@ -336,8 +330,7 @@ def test_kerr_weak_field_deflection():
         p = ham.spawn_photon(metric, x, d)
         xf, pf, sg, _ = march_kerr_pallas(metric, x, p, dt=0.5,
                                           max_steps=200_000,
-                                          escape_radius=1.5 * l0,
-                                          interpret=True, tile_rows=1)
+                                          escape_radius=1.5 * l0)
         assert int(sg[0]) == 1
         ginv = metric.inverse_metric(xf[0])
         pup = np.asarray(ginv @ pf[0])
@@ -407,7 +400,7 @@ def test_kerr_volumetric_pallas_matches_xla():
         xa, pa, sa, tau_a, em_a = march_kerr_volumetric(m, x0, p0,
                                                         params=disk, **kw)
         xb, pb, sb, _, (tau_b, em_b) = march_kerr_pallas(
-            m, x0, p0, vol_disk=disk, interpret=True, tile_rows=8, **kw)
+            m, x0, p0, vol_disk=disk, **kw)
         np.testing.assert_array_equal(np.asarray(sa), np.asarray(sb))
         np.testing.assert_allclose(np.asarray(tau_a), np.asarray(tau_b),
                                    rtol=2e-3, atol=1e-5)
@@ -533,7 +526,7 @@ def test_kerr_far_accel_parity_and_accuracy():
     fast = ham.march_hamiltonian(m, x0, p0, capture_radius=cap,
                                  far_r0=8.0, **kw)
     xk, pk, sk, stk = march_kerr_pallas(m, x0, p0, far_r0=8.0,
-                                        interpret=True, tile_rows=8, **kw)
+                                        **kw)
     # identical rule in kernel and XLA marcher
     np.testing.assert_array_equal(np.asarray(fast.sign), np.asarray(sk))
     ok = np.asarray(fast.sign) > 0
@@ -619,7 +612,7 @@ def test_kerr_rk45_kernel_matches_xla_twin(charged):
     (integrate/rk45.py:march_kerr_rk45) implement the identical tableau,
     norm and controller — per-ray ACCEPTED-STEP COUNTS must be equal and
     the states agree to f64 accumulation round-off.  Charged case: the
-    Kerr-Newman q^2 rides the same SMEM slot as the fixed-step kernel."""
+    Kerr-Newman q^2 rides the same scalar-row slot as the fixed-step kernel."""
     from curvis_tpu.integrate.rk45 import march_kerr_rk45
     from curvis_tpu.ops.march_pallas import march_kerr_rk45_pallas
     if charged:
@@ -638,8 +631,8 @@ def test_kerr_rk45_kernel_matches_xla_twin(charged):
         dirs / np.linalg.norm(dirs, axis=1, keepdims=True)))
     kw = dict(escape_radius=60.0, rtol=1e-5, atol=1e-8, max_steps=20_000)
     res = march_kerr_rk45(m, x0, p0, **kw)
-    xk, pk, sk, stk = march_kerr_rk45_pallas(m, x0, p0, interpret=True,
-                                             tile_rows=8, **kw)
+    xk, pk, sk, stk = march_kerr_rk45_pallas(m, x0, p0,
+                                             **kw)
     np.testing.assert_array_equal(np.asarray(res.sign), np.asarray(sk))
     np.testing.assert_array_equal(np.asarray(res.steps), np.asarray(stk))
     esc = np.asarray(res.sign) == 1
@@ -657,8 +650,8 @@ def test_kerr_rk45_boundary_parked_ray_escapes(backend):
     permanent over-reject loop under a frac-only boundary-stepping rule —
     (R - r) == 0 makes frac == 0 (< 0.9) for every escaping trial, including
     the dt_min retry that lands at R + ~1e-5, so the ray never freezes and
-    spins its tile to max_iters (measured ~27 ms/ray on v5e; one such ray
-    per ~150k at 512x288).  The absolute-overshoot tolerance (r1 <= R*(1 +
+    spins its block to max_iters (about one such ray per ~150k at
+    512x288).  The absolute-overshoot tolerance (r1 <= R*(1 +
     1e-3) is never a 'gross' overshoot) must let it escape within a few
     iterations in BOTH twins."""
     from curvis_tpu.integrate.rk45 import march_kerr_rk45
@@ -679,8 +672,8 @@ def test_kerr_rk45_boundary_parked_ray_escapes(backend):
     # the escape state is read essentially AT the boundary
     assert (np.asarray(res.x)[:, 1] <= R * (1 + 1e-3) + 1e-6).all()
     if backend == "pallas":
-        _, _, sk, _ = march_kerr_rk45_pallas(m, x0, p0, interpret=True,
-                                             tile_rows=8, **kw)
+        _, _, sk, _ = march_kerr_rk45_pallas(m, x0, p0,
+                                             **kw)
         assert (np.asarray(sk) == 1).all(), np.asarray(sk)
 
 

@@ -1,7 +1,7 @@
 """Kerr volumetric starlight scattering (round 5): the in-gas
 single-scattering source in the Boyer-Lindquist family — the BL twin of
 the planar scatter term (tests/test_starlight_scatter.py), riding the
-Kerr kernels' SMEM row at KERR_SCATTER_OFF.
+Kerr kernels' scalar row at KERR_SCATTER_OFF.
 
 Regression anchor: before round 5's late session, ``DiskParams(
 volumetric=True, starlight=True)`` SILENTLY ignored starlight for Kerr
@@ -89,8 +89,7 @@ def test_twin_matches_kernel_kerr(stepper):
         _, _, s_t, tau_t, em_t = march_kerr_volumetric(
             _KERR, x0, p0, params=_DISK, scatter_block=blk, **_KW)
         _, _, s_k, _, (tau_k, em_k) = march_kerr_pallas(
-            _KERR, x0, p0, vol_disk=_DISK, scatter_block=blk,
-            interpret=True, **_KW)
+            _KERR, x0, p0, vol_disk=_DISK, scatter_block=blk, **_KW)
         tol = dict(rtol=1e-6, atol=1e-9)
     else:
         # the rk45 XLA twin with scatter IS the adjoint forward
@@ -101,8 +100,7 @@ def test_twin_matches_kernel_kerr(stepper):
         _, _, s_t, _, tau_t, em_t = march_kerr_rk45_vol_adjoint(
             _KERR, x0, p0, _DISK, scatter_block=blk, backend="xla", **kw)
         _, _, s_k, _, (tau_k, em_k), _ = march_kerr_rk45_pallas(
-            _KERR, x0, p0, vol_disk=_DISK, scatter_block=blk,
-            interpret=True, return_iters=True, **kw)
+            _KERR, x0, p0, vol_disk=_DISK, scatter_block=blk, return_iters=True, **kw)
         tol = dict(rtol=1e-3, atol=1e-6)
     np.testing.assert_allclose(np.asarray(tau_t), np.asarray(tau_k), **tol)
     for c in range(3):

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 
 from curvis_tpu.parallel.multiproc import (render_demo_single_process,
-                                           run_multiprocess_render)
+                                           run_multiprocess_render,
+                                           worker_env)
 
 
 @pytest.fixture(scope="module")
@@ -57,3 +58,31 @@ def test_assembled_image_matches_single_process(mp_run):
     # band decomposition is per-ray math: bit-identical assembly
     np.testing.assert_array_equal(img, ref)
     assert np.isfinite(ref).all() and (ref.sum(-1) > 0).mean() > 0.9
+
+
+@pytest.mark.parametrize("visible,cards", [(None, ["0", "1", "2", "3"]),
+                                           ("4,5,6,7", ["4", "5", "6", "7"]),
+                                           ("GPU-a, GPU-b,GPU-c,GPU-d",
+                                            ["GPU-a", "GPU-b", "GPU-c",
+                                             "GPU-d"])])
+def test_gpu_worker_takes_the_ith_visible_card(visible, cards):
+    """One card per GPU worker, taken from the parent's visible list."""
+    base = {} if visible is None else {"CUDA_VISIBLE_DEVICES": visible}
+    got = [worker_env(i, base, platform="gpu", local_devices=1)
+           ["CUDA_VISIBLE_DEVICES"] for i in range(4)]
+    assert got == cards
+    assert "JAX_PLATFORMS" not in worker_env(0, base, platform="gpu",
+                                             local_devices=1)
+
+
+def test_gpu_worker_beyond_the_visible_cards_fails():
+    with pytest.raises(ValueError):
+        worker_env(2, {"CUDA_VISIBLE_DEVICES": "3,5"}, platform="gpu",
+                   local_devices=1)
+
+
+def test_cpu_worker_gets_virtual_devices():
+    env = worker_env(1, {"CUDA_VISIBLE_DEVICES": "3"}, platform="cpu",
+                     local_devices=4)
+    assert env["JAX_PLATFORMS"] == "cpu"
+    assert "device_count=4" in env["XLA_FLAGS"]

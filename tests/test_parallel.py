@@ -84,7 +84,7 @@ def test_mesh_utilities():
 
 
 def test_shardmap_pallas_render_matches_single(rng):
-    """Production pod path: shard_map with a per-shard Pallas kernel launch
+    """Production multi-card path: shard_map with a per-shard kernel launch
     (interpret mode on the virtual CPU mesh).  Smooth textures + bilinear
     filtering so f32 ulp-level angle differences cannot flip whole texels:
     the sharded image must match the single-device while-backend image to
@@ -102,7 +102,7 @@ def test_shardmap_pallas_render_matches_single(rng):
     bgn32 = cv.make_spherical_image(smooth[::-1].copy())
     mesh = make_mesh(8)
     img = np.asarray(render_direct_shardmap(
-        metric32, cam32, bgp32, bgn32, mesh, interpret=True,
+        metric32, cam32, bgp32, bgn32, mesh,
         use_pallas=True, filtering="bilinear", **KW))
     ref = np.asarray(cv.render_direct(metric32, cam32, bgp32, bgn32,
                                       method="planar", filtering="bilinear",
@@ -240,7 +240,7 @@ def test_kerr_shardmap_kernel_render_matches_batched(rng, stepper):
     mesh = make_mesh(8)
     imgs = jax.jit(lambda m, bp: render_kerr_shardmap(
         m, cams, bp, mesh, dt=0.2, max_steps=256, escape_radius=45.0,
-        stepper=stepper, interpret=True))(metric, bg)
+        stepper=stepper))(metric, bg)
     ref = render_kerr_frames_batched(metric, cams, bg, dt=0.2,
                                      max_steps=256, escape_radius=45.0,
                                      backend="xla", stepper=stepper,
@@ -262,13 +262,12 @@ def test_kerr_train_step_use_pallas_pair_per_shard(rng, stepper):
     mesh = make_mesh(8)
     target = jax.jit(lambda m, bp: render_kerr_shardmap(
         m, cams, bp, mesh, dt=0.2, max_steps=256, escape_radius=30.0,
-        stepper=stepper, interpret=True))(metric_t, bg)
+        stepper=stepper))(metric_t, bg)
     m0 = KerrMetric(m=jnp.asarray(1.0, jnp.float32),
                     a=jnp.asarray(0.5, jnp.float32))
     step = jax.jit(make_kerr_train_step(mesh, dt=0.2, max_steps=256,
                                         escape_radius=30.0, lr=0.5,
-                                        use_pallas=True, stepper=stepper,
-                                        interpret=True))
+                                        use_pallas=True, stepper=stepper))
     m1, loss = step(m0, cams, bg, target)
     assert np.isfinite(float(loss))
     # the target has higher spin; the psum'd gradient must move a upward
@@ -292,7 +291,7 @@ def test_kerr_shardmap_grad_matches_unsharded(rng):
         m = KerrMetric(m=jnp.asarray(1.0, jnp.float32), a=a)
         x, p, sign, _ = march_kerr_shardmap(
             m, x0, p0, mesh, dt=0.2, max_steps=256, escape_radius=30.0,
-            differentiable=True, interpret=True)
+            differentiable=True)
         return jnp.mean(jnp.where(sign == 1, jnp.sin(x[:, 3]) * p[:, 1],
                                   0.0))
 
@@ -300,7 +299,7 @@ def test_kerr_shardmap_grad_matches_unsharded(rng):
         m = KerrMetric(m=jnp.asarray(1.0, jnp.float32), a=a)
         x, p, sign, _ = march_kerr_adjoint(
             m, x0, p0, dt=jnp.asarray(0.2, jnp.float32), max_steps=256,
-            escape_radius=30.0, backend="pallas_interpret")
+            escape_radius=30.0, backend="pallas")
         return jnp.mean(jnp.where(sign == 1, jnp.sin(x[:, 3]) * p[:, 1],
                                   0.0))
 
@@ -311,7 +310,7 @@ def test_kerr_shardmap_grad_matches_unsharded(rng):
 
 
 def test_frames_shardmap_kernel_launch_per_device(rng):
-    """Video pod path (render_frames_shardmap): ('frames','rays') mesh with
+    """Multi-card video path (render_frames_shardmap): ('frames','rays') mesh with
     one Pallas kernel launch per device over its (local frames x rays)
     block.  Per-ray kernel math is tile-composition-independent, so each
     frame must equal the rays-sharded kernel render of that camera."""
@@ -324,13 +323,13 @@ def test_frames_shardmap_kernel_launch_per_device(rng):
                            dtype=jnp.float64) for k in range(4)]
     mesh2 = make_mesh_2d(2, 4)
     frames = np.asarray(render_frames_shardmap(
-        metric, cams, bg_p, bg_n, mesh2, interpret=True, use_pallas=True,
+        metric, cams, bg_p, bg_n, mesh2, use_pallas=True,
         **KW))
     assert frames.shape == (4, 16, 32, 3)
     mesh = make_mesh(8)
     for k, cam in enumerate(cams):
         single = np.asarray(render_direct_shardmap(
-            metric, cam, bg_p, bg_n, mesh, interpret=True, use_pallas=True,
+            metric, cam, bg_p, bg_n, mesh, use_pallas=True,
             **KW))
         np.testing.assert_array_equal(frames[k], single)
 

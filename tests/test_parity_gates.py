@@ -1,7 +1,7 @@
-"""The bench-time parity gates (benchmarks/parity_gates.py) in interpret
-mode: validates the gate logic itself on CPU so an on-chip gate failure
-can only mean a Mosaic miscompile (the gates' whole purpose), never a
-broken probe."""
+"""The parity gates (benchmarks/parity_gates.py) in interpret mode:
+validates the gate logic itself on CPU so a gate failure on the card can
+only mean a GPU miscompile (the gates' whole purpose), never a broken
+probe."""
 import sys
 from pathlib import Path
 
@@ -10,16 +10,12 @@ import pytest
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "benchmarks"))
 
 
-@pytest.fixture(autouse=True)
-def _interpret(monkeypatch):
-    monkeypatch.setenv("CURVIS_GATES_INTERPRET", "1")
-
-
 @pytest.mark.parametrize("family", ["euler_ellis", "rk45", "rk45_disk",
+                                    "fused_euler", "fused_rk45",
                                     "rk45_vol", "kerr_rk45",
                                     "kerr_rk45_vol", "table", "table_rk45",
-                                    "table_disk", "table_vol", "adjoint",
-                                    "rk45_adjoint", "rk45_adjoint_planar"])
+                                    "table_disk", "table_vol", "kerr",
+                                    "disk", "volumetric"])
 def test_gate_passes_on_cpu(family):
     from parity_gates import run_gates
     res = run_gates(only=[family])[family]

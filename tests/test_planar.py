@@ -159,8 +159,7 @@ def test_pallas_kernel_interpret_mode_matches_while():
                            else a for a in rays))
     kw = dict(dt=0.05, max_steps=4000, escape_radius=30.0)
     a = pl.march_planar_while(metric, rays, **kw)
-    b = march_planar_pallas(metric, rays, interpret=True, sort=False,
-                            tile_rows=8, **kw)
+    b = march_planar_pallas(metric, rays, **kw)
     np.testing.assert_array_equal(np.asarray(a.sign), np.asarray(b.sign))
     assert np.abs(np.asarray(a.psi) - np.asarray(b.psi)).max() < 1e-5
 
@@ -177,8 +176,7 @@ def test_pallas_kernel_dneg_interpret_matches_while():
     rays = pl.PlanarRays(*(a.astype(jnp.float32) for a in rays))
     kw = dict(dt=0.05, max_steps=8000, escape_radius=50.0)
     a = pl.march_planar_while(metric, rays, **kw)
-    b = march_planar_pallas(metric, rays, interpret=True, sort=False,
-                            tile_rows=8, **kw)
+    b = march_planar_pallas(metric, rays, **kw)
     np.testing.assert_array_equal(np.asarray(a.sign), np.asarray(b.sign))
     # poly atan vs libm atan: ~1 ulp f32 per step
     assert np.abs(np.asarray(a.psi) - np.asarray(b.psi)).max() < 1e-4
@@ -193,10 +191,10 @@ def test_atan_poly_accuracy():
 
 
 def test_fused_kernel_interpret_matches_fast():
-    """The fully fused spawn+march+readout kernel equals the SoA path
-    (bit-identical for Ellis in interpret mode)."""
+    """render_planar_fused through the fused Euler kernel (interpret mode)
+    equals the SoA path on the XLA tiled march (bit-identical for Ellis)."""
     from curvis_tpu.render.fast import render_planar_fast
-    from curvis_tpu.ops.render_fused import render_planar_fused
+    from curvis_tpu.render.fast import render_planar_fused
     rng2 = np.random.default_rng(1)
     metric = EllisMetric(rho=jnp.asarray(1.0, jnp.float32))
     bgp = cv.make_spherical_image(rng2.random((32, 64, 3)).astype("float32"))
@@ -208,16 +206,16 @@ def test_fused_kernel_interpret_matches_fast():
     a = np.asarray(render_planar_fast(metric, cam, bgp, bgn,
                                       backend="tiled", **kw))
     b = np.asarray(render_planar_fused(metric, cam, bgp, bgn,
-                                       interpret=True, tile_rows=8, **kw))
+                                       backend="pallas", **kw))
     np.testing.assert_array_equal(a, b)
 
 
 def test_fused_rk45_matches_quality_path():
-    """The fused adaptive DP5(4) pipeline (round 5, quality-mode ceiling)
-    equals the non-fused rk45 quality path on a smooth texture — zero
-    pixels beyond the chaos tolerance, median at f32 ulps."""
+    """render_planar_fused(stepper='rk45') through the fused DP5(4) kernel
+    (interpret mode) equals the XLA rk45 quality path on a smooth texture
+    — zero pixels beyond the chaos tolerance, median at f32 ulps."""
     from curvis_tpu.render.fast import render_planar_fast
-    from curvis_tpu.ops.render_fused import render_planar_fused
+    from curvis_tpu.render.fast import render_planar_fused
     metric = EllisMetric(rho=jnp.asarray(1.0, jnp.float32))
     yy, xx = np.mgrid[0:32, 0:64]
     smooth = np.stack([np.sin(2 * np.pi * xx / 64) * 0.5 + 0.5, yy / 32,
@@ -234,7 +232,7 @@ def test_fused_rk45_matches_quality_path():
                                       backend="while", **kw))
     b = np.asarray(render_planar_fused(metric, cam, bgp, bgn,
                                        stepper="rk45", rtol=1e-4,
-                                       interpret=True, tile_rows=8, **kw))
+                                       backend="pallas", **kw))
     assert np.isfinite(b).all()
     d = np.abs(a - b).max(-1)
     assert float((d > 0.02).mean()) == 0.0
@@ -261,8 +259,7 @@ def test_backends_agree_at_step_cap():
         s = pl.march_planar_scan(metric, rays, max_steps=cap, **kw)
         t = pl.march_planar_tiled(metric, rays, max_steps=cap, tile=640,
                                   **kw)
-        p = march_planar_pallas(metric, rays, max_steps=cap, interpret=True,
-                                sort=False, tile_rows=8, **kw)
+        p = march_planar_pallas(metric, rays, max_steps=cap, **kw)
         for other in (s, t, p):
             np.testing.assert_array_equal(np.asarray(w.sign),
                                           np.asarray(other.sign),
@@ -279,9 +276,9 @@ def test_backends_agree_at_step_cap():
 def test_near_radial_spawn_always_finite():
     """Planar-basis degeneracy must be gated on the computed cross norm.
 
-    On TPU, FMA rounding can produce cos_a != +-1 while the cross product
+    FMA rounding can produce cos_a != +-1 while the cross product
     r_hat x d cancels to exactly 0 for a near-radial pixel (observed: one
-    NaN ray per 960x540 Schwarzschild frame on v5e) — rsqrt(0) * 0 = NaN
+    NaN ray per 960x540 Schwarzschild frame) — rsqrt(0) * 0 = NaN
     then poisons the ray's (e2, n_z) basis and every downstream volumetric
     accumulator.  Sweep f32 directions within microradians of -r_hat
     (including exactly anti-parallel) through every spawn path and require
@@ -320,13 +317,13 @@ def test_near_radial_spawn_always_finite():
 
 def test_fused_renderer_covers_rn_and_table_kinds(rng):
     """Round 4 (VERDICT round-3 weak #8): charged (Reissner-Nordstrom) and
-    Chebyshev-tabulated user metrics take the headline fused kernel instead
-    of silently falling back — parity with the non-fused SoA pipeline."""
+    Chebyshev-tabulated user metrics take the headline render's kernel
+    instead of silently falling back — parity with the XLA pipeline."""
     import jax
     import curvis_tpu as cv
     from curvis_tpu.metrics.base import ReissnerNordstromMetric
     from curvis_tpu.metrics.table import tabulate_metric
-    from curvis_tpu.ops.render_fused import render_planar_fused
+    from curvis_tpu.render.fast import render_planar_fused
     from curvis_tpu.render.fast import render_planar_fast
     yy, xx = np.mgrid[0:64, 0:128]
     smooth = np.stack([np.sin(2 * np.pi * xx / 128) * .5 + .5, yy / 64,
@@ -343,8 +340,8 @@ def test_fused_renderer_covers_rn_and_table_kinds(rng):
                          [0.0, 0.0, 1.0], 15.0, 43.0, 48, 27,
                          dtype=jnp.float32)
     a = np.asarray(render_planar_fast(rn, cam, bgp, bgn, **kw))
-    b = np.asarray(render_planar_fused(rn, cam, bgp, bgn, interpret=True,
-                                       **kw))
+    b = np.asarray(render_planar_fused(rn, cam, bgp, bgn,
+                                       backend="pallas", **kw))
     assert (np.abs(a - b).max(-1) > 0.05).mean() < 0.01
 
     def r_fn(l):
@@ -357,6 +354,6 @@ def test_fused_renderer_covers_rn_and_table_kinds(rng):
                           [0.0, 0.0, 1.0], 15.0, 43.0, 48, 27,
                           dtype=jnp.float32)
     a = np.asarray(render_planar_fast(tab, cam2, bgp, bgn, **kw))
-    b = np.asarray(render_planar_fused(tab, cam2, bgp, bgn, interpret=True,
-                                       **kw))
+    b = np.asarray(render_planar_fused(tab, cam2, bgp, bgn,
+                                       backend="pallas", **kw))
     assert (np.abs(a - b).max(-1) > 0.05).mean() < 0.01

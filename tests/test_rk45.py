@@ -107,8 +107,7 @@ def test_pallas_rk45_interpret_matches_xla():
     rays = pl.PlanarRays(*(a.astype(jnp.float32) for a in rays))
     kw = dict(escape_radius=50.0, rtol=1e-5, atol=1e-7)
     a = march_planar_rk45(metric, rays, **kw)
-    b = march_planar_rk45_pallas(metric, rays, interpret=True, tile_rows=8,
-                                 **kw)
+    b = march_planar_rk45_pallas(metric, rays, **kw)
     np.testing.assert_array_equal(np.asarray(a.sign), np.asarray(b.sign))
     assert np.abs(np.asarray(a.psi) - np.asarray(b.psi)).max() < 1e-3
     # step counts agree closely (identical control flow, f32 rounding only)
@@ -135,8 +134,7 @@ def test_rk45_nonfinite_ray_freezes_not_spins():
     sa = np.asarray(a.sign)
     assert sa[3] == 3, sa
     assert (sa[np.arange(n) != 3] == 1).all(), sa       # others escape fine
-    b = march_planar_rk45_pallas(metric, rays, interpret=True, tile_rows=8,
-                                 **kw)
+    b = march_planar_rk45_pallas(metric, rays, **kw)
     sb = np.asarray(b.sign)
     assert sb[3] == 3, sb
     assert (sb[np.arange(n) != 3] == 1).all(), sb

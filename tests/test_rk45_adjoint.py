@@ -126,7 +126,7 @@ def test_pallas_pair_matches_xla_pair():
     gx = float(jax.jit(jax.grad(lambda a: _loss(a, m0, pos, dirs, "xla")))
                (a0))
     gp = float(jax.jit(jax.grad(
-        lambda a: _loss(a, m0, pos, dirs, "pallas_interpret")))(a0))
+        lambda a: _loss(a, m0, pos, dirs, "pallas")))(a0))
     assert abs(gp - gx) / max(abs(gx), 1e-12) < 1e-5, (gp, gx)
 
 
@@ -208,29 +208,36 @@ def test_thin_disk_rk45_scan_no_longer_guarded():
 
 
 def test_odd_max_iters_matches_even_on_pallas_pair():
-    """The unroll-2 Pallas forward runs its last body in full, so an odd
-    max_iters would let capped rays record max_iters+1 iterations while
-    the backward replays max_iters — silent gradient truncation.  The
-    bound is now rounded to the unroll granularity: odd and even calls
-    must produce identical states AND gradients (regression)."""
+    """An odd iteration cap binds the kernel forward exactly: no ray
+    records more than max_iters iterations (the backward replays exactly
+    max_iters), and the kernel-forward pair agrees with the XLA pair at
+    the cap, capped rays included (a forward that overshot the cap would
+    silently truncate their gradient)."""
+    from curvis_tpu.ops.march_pallas import march_kerr_rk45_pallas
     pos, dirs = _bundle()
     m0 = jnp.asarray(1.0)
+    kw = dict(dt0=0.1, max_steps=30, escape_radius=25.0, rtol=1e-9,
+              atol=1e-12, dt_min=1e-7)
 
-    def loss(a, max_iters):
+    def loss(a, max_iters, backend):
         metric = KerrMetric(m=m0, a=a)
         p0 = ham.spawn_photon(metric, pos, dirs)
         x, p, sign, _ = march_kerr_rk45_adjoint(
-            metric, pos, p0, backend="pallas_interpret", dt0=0.1,
-            max_steps=30, max_iters=max_iters, escape_radius=25.0,
-            rtol=1e-9, atol=1e-12, dt_min=1e-7)
+            metric, pos, p0, backend=backend, max_iters=max_iters, **kw)
         smooth = (sign == 0) | (sign == 1)        # capped rays included
         return jnp.mean(jnp.where(smooth,
                                   jnp.sin(x[:, 3]) * p[:, 1]
                                   + jnp.cos(x[:, 2]), 0.0))
 
     a0 = jnp.asarray(0.8)
-    v_odd, g_odd = jax.value_and_grad(loss)(a0, 61)
-    v_even, g_even = jax.value_and_grad(loss)(a0, 62)
-    np.testing.assert_array_equal(np.asarray(v_odd), np.asarray(v_even))
-    np.testing.assert_array_equal(np.asarray(g_odd), np.asarray(g_even))
-    assert np.isfinite(float(g_odd))
+    metric = KerrMetric(m=m0, a=a0)
+    *_, iters = march_kerr_rk45_pallas(
+        metric, pos, ham.spawn_photon(metric, pos, dirs), max_iters=21,
+        return_iters=True, **kw)
+    assert int(np.asarray(iters).max()) == 21
+    v_p, g_p = jax.value_and_grad(loss)(a0, 21, "pallas")
+    v_x, g_x = jax.value_and_grad(loss)(a0, 21, "xla")
+    np.testing.assert_allclose(float(v_p), float(v_x), rtol=1e-8)
+    assert abs(float(g_p) - float(g_x)) / max(abs(float(g_x)), 1e-12) \
+        < 1e-5, (g_p, g_x)
+    assert np.isfinite(float(g_p))

@@ -85,7 +85,7 @@ def test_forward_value_matches_rk45_twin_semantics():
 
 
 def test_pallas_forward_matches_xla_forward():
-    """backend='pallas_interpret' marches the production kernel; the XLA
+    """backend='pallas' marches the production kernel (interpret); the XLA
     twin was built op-for-op on the kernel's iteration — states must agree
     to ulps and fates exactly (the backward replays the XLA map over the
     KERNEL's iteration counts, so this parity is load-bearing)."""
@@ -95,7 +95,7 @@ def test_pallas_forward_matches_xla_forward():
         metric, (rays.l, rays.psi, rays.p_l), rays.b, backend="xla", **_KW)
     op = march_planar_rk45_adjoint(
         metric, (rays.l, rays.psi, rays.p_l), rays.b,
-        backend="pallas_interpret", **_KW)
+        backend="pallas", **_KW)
     np.testing.assert_array_equal(np.asarray(ox[3]), np.asarray(op[3]))
     np.testing.assert_array_equal(np.asarray(ox[4]), np.asarray(op[4]))
     np.testing.assert_allclose(np.asarray(ox[0]), np.asarray(op[0]),
@@ -151,7 +151,7 @@ def test_pallas_pair_matches_xla_pair():
     gx = float(jax.jit(jax.grad(
         lambda r: _loss(EllisMetric(rho=r), rays, "xla")))(jnp.asarray(1.0)))
     gp = float(jax.jit(jax.grad(
-        lambda r: _loss(EllisMetric(rho=r), rays, "pallas_interpret")))
+        lambda r: _loss(EllisMetric(rho=r), rays, "pallas")))
         (jnp.asarray(1.0)))
     assert abs(gp - gx) / max(abs(gx), 1e-12) < 1e-6, (gp, gx)
 

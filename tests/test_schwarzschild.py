@@ -120,8 +120,7 @@ def test_schwarzschild_pallas_interpret_matches_while():
     rays = pl.PlanarRays(*(a.astype(jnp.float32) for a in rays))
     kw = dict(dt=0.02, max_steps=40_000, escape_radius=60.0)
     a = pl.march_planar_while(metric, rays, **kw)
-    b = march_planar_pallas(metric, rays, interpret=True, sort=False,
-                            tile_rows=8, **kw)
+    b = march_planar_pallas(metric, rays, **kw)
     np.testing.assert_array_equal(np.asarray(a.sign), np.asarray(b.sign))
     escaped = np.asarray(a.sign) == 1
     d = np.abs(np.asarray(a.psi) - np.asarray(b.psi))[escaped]
@@ -129,11 +128,11 @@ def test_schwarzschild_pallas_interpret_matches_while():
 
 
 def test_fused_kernel_schwarzschild_interpret(rng):
-    """The fused render kernel's Schwarzschild path (lapse spawn/readout +
-    capture) vs the SoA fast path; differences confined to the shadow-edge
-    chaos band."""
+    """render_planar_fused's Schwarzschild path through the fused kernel
+    (interpret mode; lapse spawn/readout + capture) vs the SoA fast path on
+    the XLA march; differences confined to the shadow-edge chaos band."""
     from curvis_tpu.render.fast import render_planar_fast
-    from curvis_tpu.ops.render_fused import render_planar_fused
+    from curvis_tpu.render.fast import render_planar_fused
     metric = SchwarzschildMetric(m=jnp.asarray(1.0, jnp.float32))
     cam = cv.make_camera([0.0, 28.0, np.pi / 2 - 0.2, 0.0],
                          [-1.0, 0.0, -0.2], [0.0, 0.0, 1.0], 30.0, 43.0,
@@ -143,6 +142,6 @@ def test_fused_kernel_schwarzschild_interpret(rng):
     a = np.asarray(render_planar_fast(metric, cam, bgp, bgp,
                                       backend="tiled", **kw))
     b = np.asarray(render_planar_fused(metric, cam, bgp, bgp,
-                                       interpret=True, tile_rows=8, **kw))
+                                       backend="pallas", **kw))
     d = np.abs(a - b).max(-1)
     assert (d > 1e-6).mean() < 0.05

@@ -1,7 +1,7 @@
-"""SMEM row layout contract (VERDICT round-3 next-step #4).
+"""Scalar-row layout contract (VERDICT round-3 next-step #4).
 
 Round 3 shipped the same bug class twice: a Chebyshev coefficient tail read
-at the wrong SMEM offset because the row layout was hardcoded independently
+at the wrong row offset because the row layout was hardcoded independently
 in the row builders and in each kernel.  The layout now lives in ONE set of
 module constants (ops/march_pallas.py, module top) that both the kernels'
 reads and the wrappers' splice asserts consume; this test pins the contract

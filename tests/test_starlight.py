@@ -277,7 +277,7 @@ def test_render_starlight_backend_parity():
     a = np.asarray(render_blackhole_disk(m, _cam(24, 12), bg, disk=star,
                                          backend="while", **kw))
     b = np.asarray(render_blackhole_disk(m, _cam(24, 12), bg, disk=star,
-                                         backend="pallas", interpret=True,
+                                         backend="pallas",
                                          **kw))
     np.testing.assert_allclose(a, b, atol=2e-5)
 

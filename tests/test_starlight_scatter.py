@@ -1,5 +1,5 @@
 """Volumetric starlight scattering (VERDICT round-4 #3a): the lensed-sky
-single-scattering source term riding the planar vol kernels' SMEM row.
+single-scattering source term riding the planar vol kernels' scalar row.
 
 Closed-form oracle: the source uses the SAME density rho as the absorption
 (dtau = kappa rho ds, dI_sc = e^-tau kappa_s albedo_c E_c rho ds), so for
@@ -98,16 +98,14 @@ def test_twin_matches_kernel(stepper):
         res_t, tau_t, em_t = march_planar_disk_volumetric(
             met, rays, c1, c2, nz, params=_DISK, scatter_block=blk, **_KW)
         res_k, tau_k, em_k = march_planar_disk_volumetric_pallas(
-            met, rays, c1, c2, nz, disk=_DISK, scatter_block=blk,
-            interpret=True, **_KW)
+            met, rays, c1, c2, nz, disk=_DISK, scatter_block=blk, **_KW)
     else:
         from curvis_tpu.integrate.rk45 import march_planar_rk45
         from curvis_tpu.ops.march_pallas import march_planar_rk45_pallas
         kw = dict(dt0=0.03, max_steps=1500, escape_radius=18.0, rtol=1e-8,
                   c1=c1, c2=c2, nz=nz, vol_disk=_DISK, scatter_block=blk)
         res_t, tau_t, em_t = march_planar_rk45(met, rays, **kw)
-        res_k, tau_k, em_k = march_planar_rk45_pallas(met, rays,
-                                                      interpret=True, **kw)
+        res_k, tau_k, em_k = march_planar_rk45_pallas(met, rays, **kw)
     # euler twins share the exact quadrature; rk45 twins are separately
     # compiled controllers (knife-edge accepts differ at ulps — the
     # established rk45-twin tolerance class)

@@ -113,7 +113,7 @@ def test_disk_pallas_pair_matches_xla_pair(rk45):
     m0, a0 = jnp.asarray(1.0), jnp.asarray(0.7)
     gx = jax.grad(lambda a: _disk_loss(m0, a, pos, dirs, "xla", rk45))(a0)
     gp = jax.grad(lambda a: _disk_loss(m0, a, pos, dirs,
-                                       "pallas-interpret", rk45))(a0)
+                                       "pallas", rk45))(a0)
     assert abs(float(gx) - float(gp)) / max(abs(float(gx)), 1e-12) < 1e-7
 
 
@@ -192,7 +192,7 @@ def test_vol_pallas_pair_matches_xla_pair(rk45):
                   )(args[2])
     gp = jax.grad(lambda k: _vol_loss(args[0], args[1], k, args[3],
                                       args[4], pos, dirs,
-                                      "pallas-interpret", rk45))(args[2])
+                                      "pallas", rk45))(args[2])
     assert abs(float(gx) - float(gp)) / max(abs(float(gx)), 1e-12) < 1e-7
 
 

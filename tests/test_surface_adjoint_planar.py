@@ -73,7 +73,7 @@ def test_euler_disk_forward_matches_kernel():
     rays = pl.PlanarRays(l0, psi0, p_l0, b0, jnp.zeros((1, 3)),
                         jnp.zeros((1, 3)))
     res, h1k, h2k = march_planar_disk_pallas(
-        met, rays, c1, c2, r_inner=3.0, r_outer=12.0, interpret=True, **kw)
+        met, rays, c1, c2, r_inner=3.0, r_outer=12.0, **kw)
     l, psi, plo, sign, steps, (h1, h2) = march_planar_disk_adjoint(
         met, (l0, psi0, p_l0), b0, c1, c2, r_inner=3.0, r_outer=12.0,
         backend="xla", **kw)
@@ -146,7 +146,7 @@ def test_pallas_pair_matches_xla_pair(stepper, vol):
         L = partial(_disk_loss, l0=l0, psi0=psi0, alpha=alpha, c1=c1,
                     c2=c2, stepper=stepper)
     gx = jax.grad(lambda m: L(m, backend="xla"))(m0)
-    gp = jax.grad(lambda m: L(m, backend="pallas-interpret"))(m0)
+    gp = jax.grad(lambda m: L(m, backend="pallas"))(m0)
     assert abs(float(gx) - float(gp)) / max(abs(float(gx)), 1e-12) < 1e-6
 
 

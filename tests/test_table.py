@@ -95,8 +95,7 @@ def _march_all_backends(metric, kw):
     rays32 = pl.PlanarRays(*(a.astype(jnp.float32) for a in rays))
     from curvis_tpu.ops.march_pallas import march_planar_pallas
     a = pl.march_planar_while(metric, rays32, **kw)
-    b = march_planar_pallas(metric, rays32, interpret=True, sort=False,
-                            tile_rows=8, **kw)
+    b = march_planar_pallas(metric, rays32, **kw)
     return a, b
 
 
@@ -178,17 +177,16 @@ def test_rk45_kernel_supports_table():
     rays = pl.PlanarRays(*(a.astype(jnp.float32) for a in rays))
     kw = dict(escape_radius=50.0, rtol=1e-5, atol=1e-7)
     a = march_planar_rk45(tab, rays, **kw)
-    b = march_planar_rk45_pallas(tab, rays, interpret=True, tile_rows=8,
-                                 **kw)
+    b = march_planar_rk45_pallas(tab, rays, **kw)
     np.testing.assert_array_equal(np.asarray(a.sign), np.asarray(b.sign))
     assert np.abs(np.asarray(a.psi) - np.asarray(b.psi)).max() < 1e-3
 
 def test_volumetric_kernel_supports_table():
-    """Regression: the volumetric kernel's widened 16-slot SMEM row parks a
+    """Regression: the volumetric kernel's widened 16-slot scalar row parks a
     table metric's Chebyshev tail at offset 16 — the kernel read it from the
     compact kernels' offset 10 (kappa/tau_max/... as coefficients), giving
     garbage trajectories (final-l off by the whole escape radius), and the
-    hardcoded (1, 16) SMEM spec truncated the tail entirely.  The Pallas
+    hardcoded (1, 16) row spec truncated the tail entirely.  The Pallas
     march must match the XLA volumetric marcher on the SAME table."""
     from curvis_tpu.ops.march_pallas import march_planar_disk_volumetric_pallas
     from curvis_tpu.render.disk import DiskParams, march_planar_disk_volumetric
@@ -209,7 +207,7 @@ def test_volumetric_kernel_supports_table():
     res_a, tau_a, em_a = march_planar_disk_volumetric(tab, rays, c1, c2, nz,
                                                       params=disk, **kw)
     res_b, tau_b, em_b = march_planar_disk_volumetric_pallas(
-        tab, rays, c1, c2, nz, disk=disk, interpret=True, **kw)
+        tab, rays, c1, c2, nz, disk=disk, **kw)
     np.testing.assert_array_equal(np.asarray(res_a.sign),
                                   np.asarray(res_b.sign))
     assert float(jnp.abs(res_a.l - res_b.l).max()) < 1e-9
@@ -243,7 +241,7 @@ def test_disk_kernel_supports_table():
               r_inner=3.0, r_outer=10.0)
     res_a, (h1a, h2a, _s1a), _ = march_planar_disk(tab, rays, c1, c2, **kw)
     res_b, (h1b, h2b, _s1b), _ = march_planar_disk_pallas(
-        tab, rays, c1, c2, interpret=True, **kw)
+        tab, rays, c1, c2, **kw)
     np.testing.assert_array_equal(np.asarray(res_a.sign),
                                   np.asarray(res_b.sign))
     assert (np.asarray(h1a) > 0).any()       # rays actually hit the disk

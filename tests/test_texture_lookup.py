@@ -2,8 +2,8 @@
 
 Round-5 readout optimization: _filter_lookup's bilinear path packs each
 texel's pole/wrap-resolved 2x2 neighbourhood into one (P*(H+1)*W, 12) row
-table so the readout is ONE TPU gather instead of four (gather cost is
-per-index and row-width-independent, see render/fast.py notes).  The blend
+table so the readout is ONE gather of 12 contiguous floats per ray instead
+of four.  The blend
 arithmetic is unchanged, so results must match the legacy implementation
 BIT-FOR-BIT — including rays whose bilinear footprint crosses a pole
 (reference seam semantics, images.rs:115-167 lookup chain).
@@ -12,8 +12,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from curvis_tpu.render.fast import (_filter_lookup, _filter_lookup_legacy,
-                                    _pad_slow_band)
+from curvis_tpu.render.fast import _filter_lookup, _filter_lookup_legacy
 
 
 def _uv_cases(rng, n):
@@ -50,19 +49,6 @@ def test_nearest_matches_legacy_bitwise():
     got = _filter_lookup(rows, base, u, v, W, H, "nearest")
     want = _filter_lookup_legacy(rows, base, u, v, W, H, "nearest")
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_pad_slow_band_only_in_band():
-    a = jnp.ones((100, 3))
-    assert _pad_slow_band(a).shape == (100, 3)
-    in_band = jnp.ones((200_000, 3))
-    padded = _pad_slow_band(in_band)
-    assert padded.shape[0] == 294_912
-    np.testing.assert_array_equal(np.asarray(padded[:200_000]),
-                                  np.asarray(in_band))
-    assert float(jnp.abs(padded[200_000:]).sum()) == 0.0
-    big = jnp.ones((294_912, 3))
-    assert _pad_slow_band(big).shape == (294_912, 3)
 
 
 def test_bilinear_quad_exact_values_flat_texture():
